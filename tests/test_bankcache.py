@@ -119,11 +119,11 @@ def test_make_dense_banks_via_cache(cachedir):
 
 def test_compilation_cache_config(cachedir, monkeypatch):
     """enable_compilation_cache points jax's persistent executable cache
-    at $VKRESAMPLE_CACHE_DIR/xla (remote TPU compiles run 20 s - 17 min
-    per program; the reference pays milliseconds of glslang, SURVEY §1)
-    and the opt-out env leaves the config untouched."""
+    at $VKRESAMPLE_CACHE_DIR/xla, and the opt-out env leaves the config
+    untouched."""
     import jax
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     prev = jax.config.jax_compilation_cache_dir
     try:
         monkeypatch.setenv("VKRESAMPLE_NO_COMPILE_CACHE", "1")
@@ -139,3 +139,45 @@ def test_compilation_cache_config(cachedir, monkeypatch):
         assert os.path.isdir(want)
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compilation_cache_follows_env_dir(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, jax owns the cache location and
+    the code sets no directory at all."""
+    import jax
+
+    monkeypatch.delenv("VKRESAMPLE_NO_COMPILE_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        bankcache.enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == prev
+        assert not (tmp_path / "jc").exists()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compilation_cache_default_in_checkout(monkeypatch):
+    """Without either env var the cache sits at one fixed path inside the
+    checkout (never $HOME, a temp name, a pid or the time), and git
+    ignores it."""
+    import os
+    import pathlib
+
+    import jax
+
+    monkeypatch.delenv("VKRESAMPLE_NO_COMPILE_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.delenv("VKRESAMPLE_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        bankcache.enable_compilation_cache()
+        got = jax.config.jax_compilation_cache_dir
+        assert got == os.path.join(str(repo), ".cache", "xla")
+        bankcache.enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == got  # stable
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+    ignored = (repo / ".gitignore").read_text().split()
+    assert ".cache/" in ignored

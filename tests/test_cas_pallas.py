@@ -1,10 +1,13 @@
-"""Pallas fused CAS+quantize kernel vs oracle (interpret mode on CPU; the
-compiled path is exercised on real TPU by bench/CLI)."""
+"""Parity-plane CAS + quantize (ops/cas.py cas_parity_planes) vs the fp64
+oracle and vs the woven CAS, plus the Pallas Triton kernel of the same
+stencil in interpret mode (its compiled form runs on the GPU through
+chip_smoke.py)."""
 import numpy as np
 import pytest
 from jax import numpy as jnp
 
-from vkresample_tpu.ops.cas_pallas import cas_quantize_pallas
+from vkresample_tpu.ops import cas as cas_ops
+from vkresample_tpu.ops.cas import cas_parity_planes
 from vkresample_tpu.oracle import numpy_ref as oracle
 
 
@@ -12,38 +15,60 @@ def _want(v, s):
     return np.stack(
         [
             oracle.quantize_u8(
-                oracle.cas_sharpen(v[c].astype(np.float64), s, magnitude=False)
+                oracle.cas_sharpen(v[c].astype(np.float64), s)
             )
             for c in range(v.shape[0])
         ]
     )
 
 
+def _cas1(v, s):
+    """The woven image as a 1 x 1 parity grid."""
+    (out,) = cas_parity_planes([v], s, 1)
+    return np.asarray(out)
+
+
+def _maxdiff(a, b):
+    return int(np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int)).max())
+
+
 @pytest.mark.parametrize("shape", [(3, 64, 256), (1, 32, 128), (3, 48, 384)])
 def test_pallas_cas_matches_oracle(shape):
     rng = np.random.default_rng(shape[1])
     v = (rng.random(shape).astype(np.float32) * 1.3 - 0.1)  # incl. out-of-range
-    got = np.asarray(
-        cas_quantize_pallas(jnp.asarray(v), 0.2, block_rows=16, interpret=True)
-    )
+    got = _cas1(jnp.asarray(v), 0.2)
     assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
 
 
 def test_pallas_cas_sharpen_zero():
     rng = np.random.default_rng(7)
     v = rng.random((1, 32, 128)).astype(np.float32)
-    got = np.asarray(
-        cas_quantize_pallas(jnp.asarray(v), 0.0, block_rows=8, interpret=True)
-    )
+    got = _cas1(jnp.asarray(v), 0.0)
     assert np.abs(got.astype(int) - _want(v, 0.0).astype(int)).max() <= 1
 
 
 def test_pallas_cas_fallback_degenerate_width():
-    # W not a lane multiple -> XLA fallback path, still correct
+    # W not a lane multiple: whole planes have no degenerate geometry
     rng = np.random.default_rng(9)
     v = rng.random((2, 16, 100)).astype(np.float32)
-    got = np.asarray(cas_quantize_pallas(jnp.asarray(v), 0.2, interpret=True))
+    got = _cas1(jnp.asarray(v), 0.2)
     assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
+
+
+def _rows_planes(U, O, u):
+    """Row-split U (sample rows) + O (non-sample rows, O[t*(u-1)+k] =
+    out[u*t+k+1]) as the u x 1 parity grid."""
+    h, W = U.shape[-2:]
+    O4 = O.reshape(O.shape[:-2] + (h, u - 1, W))
+    return [U] + [O4[..., k, :] for k in range(u - 1)]
+
+
+def _weave_rows_host(planes, u):
+    c, h, W = np.asarray(planes[0]).shape
+    got = np.zeros((c, u * h, W), np.uint8)
+    for ry, p in enumerate(planes):
+        got[:, ry::u] = np.asarray(p)
+    return got
 
 
 def test_rows_fused_kernel_matches_oracle():
@@ -52,7 +77,6 @@ def test_rows_fused_kernel_matches_oracle():
     from vkresample_tpu.core.config import Engine
     from vkresample_tpu.core.plan import UpscalePlan
     from vkresample_tpu.fft import dense, mxu_pipeline
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_rows_u
 
     for u, h, w in [(2, 64, 128), (3, 48, 96)]:
         plan = UpscalePlan(h=h, w=w, upscale=float(u), engine=Engine.MXU)
@@ -61,49 +85,10 @@ def test_rows_fused_kernel_matches_oracle():
         img = rng.integers(0, 256, (h, w, 3), np.uint8)
         x_raw = jnp.moveaxis(jnp.asarray(img), -1, 0)
         U, O = dense.r2c_rows(x_raw, banks, jax.lax.Precision.HIGHEST)
-        got = np.asarray(
-            cas_quantize_rows_u(U, O, u, 0.2, block_rows=16, interpret=True)
-        )
+        outs = cas_parity_planes(_rows_planes(U, O, u), 0.2, u, 1)
+        got = _weave_rows_host(outs, u)
         want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, (u, h, w)
-
-
-def test_cas_slots_variant_matches_halo(monkeypatch):
-    """The slot-resident full-array kernel (default) is bit-identical to
-    the aligned-halo one, in f32 and i16, including image edge bands."""
-    from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_pallas
-
-    rng = np.random.default_rng(56)
-    base = jnp.asarray(rng.random((2, 96, 128), np.float32) * 1.2 - 0.1)
-    for conv in (lambda v: v, to_i16_storage):
-        v = conv(base)
-        monkeypatch.setenv("VKRESAMPLE_CAS_KERNEL", "halo")
-        halo = cas_quantize_pallas(v, 0.2, block_rows=16, interpret=True)
-        monkeypatch.setenv("VKRESAMPLE_CAS_KERNEL", "slots")
-        slots = cas_quantize_pallas(v, 0.2, block_rows=16, interpret=True)
-        monkeypatch.delenv("VKRESAMPLE_CAS_KERNEL")
-        np.testing.assert_array_equal(np.asarray(halo), np.asarray(slots))
-
-
-def test_rows_slots_variant_matches_halo(monkeypatch):
-    """The slot-resident rows kernel (default) is bit-identical to the
-    aligned-halo one for u=2 and u=3, including image top/bottom rows
-    (masked clamp vs window-clip clamp — same border math)."""
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_rows_u
-
-    rng = np.random.default_rng(55)
-    for u, h, w in [(2, 64, 128), (3, 48, 128)]:
-        U = jnp.asarray(rng.random((2, h, w), np.float32) * 1.2 - 0.1)
-        O = jnp.asarray(
-            rng.random((2, h * (u - 1), w), np.float32) * 1.2 - 0.1
-        )
-        monkeypatch.setenv("VKRESAMPLE_ROWS_KERNEL", "halo")
-        halo = cas_quantize_rows_u(U, O, u, 0.2, block_rows=16, interpret=True)
-        monkeypatch.setenv("VKRESAMPLE_ROWS_KERNEL", "slots")
-        slots = cas_quantize_rows_u(U, O, u, 0.2, block_rows=16, interpret=True)
-        monkeypatch.delenv("VKRESAMPLE_ROWS_KERNEL")
-        np.testing.assert_array_equal(np.asarray(halo), np.asarray(slots))
 
 
 def test_parity_fused_kernel_matches_oracle():
@@ -112,7 +97,6 @@ def test_parity_fused_kernel_matches_oracle():
     from vkresample_tpu.core.config import Engine
     from vkresample_tpu.core.plan import UpscalePlan
     from vkresample_tpu.fft import dense, mxu_pipeline
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_parity_u2
 
     h, w = 64, 128
     plan = UpscalePlan(h=h, w=w, upscale=2.0, engine=Engine.MXU)
@@ -121,61 +105,9 @@ def test_parity_fused_kernel_matches_oracle():
     img = rng.integers(0, 256, (h, w, 3), np.uint8)
     x_raw = jnp.moveaxis(jnp.asarray(img), -1, 0)
     U, O = dense.r2c_rows(x_raw, banks, jax.lax.Precision.HIGHEST)
-    got = np.asarray(
-        cas_quantize_parity_u2(U, O, 0.2, block_rows=16, interpret=True)
-    )
+    got = _weave_rows_host(cas_parity_planes([U, O], 0.2, 2, 1), 2)
     want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_blocked_cas_matches_oracle():
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_blocked
-
-    rng = np.random.default_rng(11)
-    v = rng.random((2, 48, 256)).astype(np.float32) * 1.2 - 0.05
-    got = np.asarray(
-        cas_quantize_blocked(jnp.asarray(v), 0.2, block_rows=16, interpret=True)
-    )
-    assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
-
-
-def test_mono_cas_matches_oracle():
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_mono
-
-    rng = np.random.default_rng(12)
-    v = rng.random((2, 128, 256)).astype(np.float32) * 1.2 - 0.05
-    got = np.asarray(
-        cas_quantize_mono(jnp.asarray(v), 0.2, block_rows=32, interpret=True)
-    )
-    assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
-
-
-def test_fit_block_alignment():
-    from vkresample_tpu.ops.cas_pallas import _fit_block
-
-    assert _fit_block(64, 2048, 8) == 64
-    assert _fit_block(48, 64, 8) == 32      # rounds to aligned divisor
-    assert _fit_block(12, 36, 8) == 0       # no aligned divisor -> fallback
-    assert _fit_block(12, 48, 8) == 8
-    assert _fit_block(130, 2048, 32) == 128
-
-
-def test_unaligned_block_rows_still_correct():
-    """Caller-passed block_rows that is not sublane-aligned must not produce
-    a misaligned DMA — it should be re-fit or fall back (round-1 advisory)."""
-    from vkresample_tpu.ops.cas_pallas import cas_quantize_pallas
-
-    rng = np.random.default_rng(13)
-    v = rng.random((2, 36, 256)).astype(np.float32) * 1.2 - 0.05
-    got = np.asarray(
-        cas_quantize_pallas(jnp.asarray(v), 0.2, block_rows=12, interpret=True)
-    )
-    assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
-    v2 = rng.random((2, 64, 256)).astype(np.float32) * 1.2 - 0.05
-    got2 = np.asarray(
-        cas_quantize_pallas(jnp.asarray(v2), 0.2, block_rows=48, interpret=True)
-    )
-    assert np.abs(got2.astype(int) - _want(v2, 0.2).astype(int)).max() <= 1
 
 
 def test_i16_storage_roundtrip_resolution():
@@ -191,28 +123,24 @@ def test_i16_storage_roundtrip_resolution():
 
 
 def test_pallas_cas_i16_input_matches_oracle():
-    """Half-mode storage: int16 Q2.14 pre-CAS image through the fused
-    kernel must match the f64 oracle within 1 LSB (both kernel and XLA
-    fallback routes)."""
+    """Half-mode storage: an int16 Q2.14 pre-CAS image through the parity
+    CAS matches the f64 oracle within 1 LSB, aligned and odd widths."""
     from vkresample_tpu.ops.cas import to_i16_storage
 
     rng = np.random.default_rng(23)
     v = rng.random((3, 64, 256)).astype(np.float32) * 1.3 - 0.1
     vi = to_i16_storage(jnp.asarray(v))
     assert vi.dtype == jnp.int16
-    got = np.asarray(cas_quantize_pallas(vi, 0.2, block_rows=16, interpret=True))
+    got = _cas1(vi, 0.2)
     assert np.abs(got.astype(int) - _want(v, 0.2).astype(int)).max() <= 1
-    # degenerate width -> XLA fallback, i16 still honored
     v2 = rng.random((2, 16, 100)).astype(np.float32)
-    got2 = np.asarray(
-        cas_quantize_pallas(to_i16_storage(jnp.asarray(v2)), 0.2, interpret=True)
-    )
+    got2 = _cas1(to_i16_storage(jnp.asarray(v2)), 0.2)
     assert np.abs(got2.astype(int) - _want(v2, 0.2).astype(int)).max() <= 1
 
 
 def test_half_mode_i16_route_end_to_end():
-    """CPU simulation of the TPU half-mode fast path: split-bf16 x matmul ->
-    i16 storage -> weave -> fused CAS; pixels within 1 LSB of the oracle."""
+    """Half-mode route: split-bf16 x matmul -> i16 storage -> per-parity
+    CAS on the row planes; pixels within 1 LSB of the oracle."""
     import jax
 
     from vkresample_tpu.core.config import Engine, Precision
@@ -229,8 +157,8 @@ def test_half_mode_i16_route_end_to_end():
     img = rng.integers(0, 256, (h, w, 3), np.uint8)
     x_raw = jnp.moveaxis(jnp.asarray(img), -1, 0)
     U, O = dense.r2c_rows(x_raw, banks, jax.lax.Precision.HIGHEST)
-    v = dense.weave_rows(to_i16_storage(U), to_i16_storage(O), 2)
-    got = np.asarray(cas_quantize_pallas(v, 0.2, block_rows=16, interpret=True))
+    outs = cas_parity_planes([to_i16_storage(U), to_i16_storage(O)], 0.2, 2, 1)
+    got = _weave_rows_host(outs, 2)
     want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
@@ -242,7 +170,6 @@ def test_parity_planes_i16_matches_oracle():
     from vkresample_tpu.core.plan import UpscalePlan
     from vkresample_tpu.fft import dense, mxu_pipeline
     from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity_planes_u2
 
     h, w = 64, 128
     plan = UpscalePlan(h=h, w=w, upscale=2.0, engine=Engine.MXU)
@@ -250,10 +177,8 @@ def test_parity_planes_i16_matches_oracle():
     rng = np.random.default_rng(41)
     img = rng.integers(0, 256, (h, w, 3), np.uint8)
     x_raw = jnp.moveaxis(jnp.asarray(img), -1, 0)
-    U, O = dense.r2c_rows(x_raw, banks, __import__("jax").lax.Precision.HIGHEST)
-    E, D = cas_parity_planes_u2(
-        to_i16_storage(U), to_i16_storage(O), 0.2, block_rows=32, interpret=True
-    )
+    U, O = dense.r2c_rows(x_raw, banks, jax.lax.Precision.HIGHEST)
+    E, D = cas_parity_planes([to_i16_storage(U), to_i16_storage(O)], 0.2, 2, 1)
     got = np.stack([np.asarray(E), np.asarray(D)], axis=-2).reshape(3, 2 * h, 2 * w)
     want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
@@ -286,76 +211,68 @@ def _weave4(outs, want_shape):
 
 
 def test_quad_parity_planes_matches_oracle():
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-
     Ps, want = _quad_setup(64, 128, 43)
-    outs = cas_parity4_planes_u2(*Ps, 0.2, block_rows=16, interpret=True)
+    outs = cas_parity_planes(Ps, 0.2, 2)
     got = _weave4(outs, want.shape)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
 def test_quad_parity_planes_i16_matches_oracle():
     from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
 
     Ps, want = _quad_setup(64, 128, 44)
     Ps = [to_i16_storage(p) for p in Ps]
-    outs = cas_parity4_planes_u2(*Ps, 0.2, block_rows=32, interpret=True)
+    outs = cas_parity_planes(Ps, 0.2, 2)
     got = _weave4(outs, want.shape)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
 def test_quad_parity_fallback_degenerate():
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-
     Ps, want = _quad_setup(64, 50, 45)  # Wh=50 not a lane multiple
-    outs = cas_parity4_planes_u2(*Ps, 0.2, interpret=True)
+    outs = cas_parity_planes(Ps, 0.2, 2)
     got = _weave4(outs, want.shape)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-def test_quad_parity_nonaligned_pad_path():
-    """Non-128-aligned Wh plus non-sublane-aligned h ride the Pallas
-    kernel via the replicate-pad path (round 5) instead of the woven
-    XLA fallback, whose (C, h, 2, Wh, 2) stack lane-pads 64x on TPU
-    (a 229 GB allocation at 8640).  The padded kernel must agree with
-    the woven-stencil evaluation on every real cell."""
-    import os
+def _woven_cas(planes, uy, ux):
+    """quantize_u8(cas_sharpen(.)) on the woven image of the planes."""
+    f = [np.asarray(cas_ops.clip_unit(jnp.asarray(p))) for p in planes]
+    c, h, w = f[0].shape
+    v = np.zeros((c, uy * h, ux * w), np.float32)
+    for i, p in enumerate(f):
+        v[:, i // ux :: uy, i % ux :: ux] = p
+    return np.asarray(cas_ops.quantize_u8(cas_ops.cas_sharpen(jnp.asarray(v), 0.2)))
 
+
+def _weave_grid(outs, uy, ux):
+    c, h, w = np.asarray(outs[0]).shape
+    got = np.zeros((c, uy * h, ux * w), np.uint8)
+    for i, p in enumerate(outs):
+        got[:, i // ux :: uy, i % ux :: ux] = np.asarray(p)
+    return got
+
+
+def test_quad_parity_nonaligned_pad_path():
+    """Non-128-aligned widths and odd heights: the plane CAS must agree
+    with the woven-stencil evaluation on every cell, in f32 and i16."""
     from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
 
     rng = np.random.default_rng(48)
-    h, Wh = 44, 180  # f32 hpad=4 / i16 hpad=4, wpad=76
+    h, Wh = 44, 180
     planes_f = [
         jnp.asarray(rng.random((2, h, Wh), np.float32) * 1.2 - 0.1)
         for _ in range(4)
     ]
     for planes in (planes_f, [to_i16_storage(p) for p in planes_f]):
-        got = cas_parity4_planes_u2(
-            *planes, 0.2, block_rows=16, interpret=True
-        )
+        got = cas_parity_planes(planes, 0.2, 2)
         assert all(o.shape == (2, h, Wh) for o in got)
-        os.environ["VKRESAMPLE_QUAD_CAS"] = "xla"
-        try:
-            want = cas_parity4_planes_u2(*planes, 0.2, interpret=True)
-        finally:
-            del os.environ["VKRESAMPLE_QUAD_CAS"]
-        for a, b in zip(got, want):
-            d = np.abs(
-                np.asarray(a).astype(int) - np.asarray(b).astype(int)
-            ).max()
-            assert d <= 1, d
+        assert _maxdiff(_weave_grid(got, 2, 2), _woven_cas(planes, 2, 2)) <= 1
 
 
 def test_grid_parity_nonaligned_pad_path():
-    """u=3 grid planes with non-aligned width/height ride the Pallas
-    kernel via the generalized replicate-pad path (round 5); must agree
-    with the woven-stencil evaluation on every real cell."""
-    import os
-
+    """u=3 grid planes with non-aligned width/height agree with the
+    woven-stencil evaluation on every cell."""
     from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
 
     rng = np.random.default_rng(49)
     u, h, Wp = 3, 68, 200
@@ -364,56 +281,18 @@ def test_grid_parity_nonaligned_pad_path():
         for _ in range(u * u)
     ]
     for planes in (planes_f, [to_i16_storage(p) for p in planes_f]):
-        got = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
+        got = cas_parity_planes(planes, 0.2, u)
         assert all(o.shape == (2, h, Wp) for o in got)
-        os.environ["VKRESAMPLE_GRID_CAS"] = "xla"
-        try:
-            want = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
-        finally:
-            del os.environ["VKRESAMPLE_GRID_CAS"]
-        for a, b in zip(got, want):
-            d = np.abs(
-                np.asarray(a).astype(int) - np.asarray(b).astype(int)
-            ).max()
-            assert d <= 1, d
-
-
-def test_quad_parity_column_strips():
-    """Wide planes route through the column-strip kernel (Wh > quad_wmax);
-    strip halos must reproduce the full-width result exactly."""
-    from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-
-    rng = np.random.default_rng(46)
-    Wh = 1024
-    planes = [
-        to_i16_storage(jnp.asarray(rng.random((2, 64, Wh), np.float32) * 1.2 - 0.1))
-        for _ in range(4)
-    ]
-    import vkresample_tpu.core.tuning as tuning
-
-    full = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-    orig = tuning.current
-    try:
-        t = orig()
-        import dataclasses
-
-        tuning.current = lambda: dataclasses.replace(t, quad_wmax=256)
-        strips = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-    finally:
-        tuning.current = orig
-    for a, b in zip(full, strips):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert _maxdiff(_weave_grid(got, u, u), _woven_cas(planes, u, u)) <= 1
 
 
 def test_phases_quad_route_matches_oracle():
     """The >DENSE_MAX route composition: packed forward -> phase planes ->
-    quad CAS (the phases ARE the parities).  CPU interpret, small shape."""
+    quad CAS (the phases ARE the parities), small shape."""
     from vkresample_tpu.core.config import Engine
     from vkresample_tpu.core.plan import UpscalePlan
     from vkresample_tpu.fft.rfft2 import irfft2_phase_planes, rfft2_packed
     from vkresample_tpu.ops.cas import normalize_u8, to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
 
     h, w = 64, 128
     plan = UpscalePlan(h=h, w=w, upscale=2.0, engine=Engine.MXU)
@@ -423,99 +302,10 @@ def test_phases_quad_route_matches_oracle():
     F = rfft2_packed(x)
     pl4 = irfft2_phase_planes(F, h, w, 2, plan.kept_hi_x > 0)
     Ps = [to_i16_storage(p) for p in (pl4[0][0], pl4[0][1], pl4[1][0], pl4[1][1])]
-    outs = cas_parity4_planes_u2(*Ps, 0.2, block_rows=16, interpret=True)
+    outs = cas_parity_planes(Ps, 0.2, 2)
     want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
     got = _weave4(outs, want.shape)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_quad_parity_xla_route(monkeypatch):
-    """VKRESAMPLE_QUAD_CAS=xla evaluates the same quad stencil as full
-    XLA ops (no Pallas) — bit-identical to the kernel in f32 and i16."""
-    from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-
-    Ps, want = _quad_setup(64, 128, 47)
-    for conv in (lambda p: p, to_i16_storage):
-        planes = [conv(p) for p in Ps]
-        base = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-        monkeypatch.setenv("VKRESAMPLE_QUAD_CAS", "xla")
-        got = cas_parity4_planes_u2(*planes, 0.2)
-        monkeypatch.delenv("VKRESAMPLE_QUAD_CAS")
-        for a, b in zip(base, got):
-            assert np.array_equal(np.asarray(a), np.asarray(b))
-        woven = _weave4(got, want.shape)
-        assert np.abs(woven.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_quad_strip_env_knobs(monkeypatch):
-    """VKRESAMPLE_QUAD_BT/WSB override the strip band geometry; results
-    stay identical to the full-width kernel."""
-    import dataclasses
-
-    from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-    import vkresample_tpu.core.tuning as tuning
-
-    rng = np.random.default_rng(48)
-    planes = [
-        to_i16_storage(
-            jnp.asarray(rng.random((2, 64, 1024), np.float32) * 1.2 - 0.1)
-        )
-        for _ in range(4)
-    ]
-    full = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-    orig = tuning.current
-    try:
-        t = orig()
-        tuning.current = lambda: dataclasses.replace(t, quad_wmax=256)
-        monkeypatch.setenv("VKRESAMPLE_QUAD_BT", "16")
-        monkeypatch.setenv("VKRESAMPLE_QUAD_WSB", "512")
-        # pin the aligned-halo kernel (slots is the default)
-        monkeypatch.setenv("VKRESAMPLE_QUAD_STRIP", "halo")
-        strips = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-    finally:
-        tuning.current = orig
-    for a, b in zip(full, strips):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_quad_strip_slots_variant(monkeypatch):
-    """VKRESAMPLE_QUAD_STRIP=slots (the default) routes the column strips
-    through the slot-resident kernel (row halos read from neighbor bands'
-    slots, no padded DMA windows) — bit-identical to the full-width
-    kernel in i16 and f32, including the image top/bottom clamp rows."""
-    import dataclasses
-
-    from vkresample_tpu.ops.cas import to_i16_storage
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-    import vkresample_tpu.core.tuning as tuning
-
-    rng = np.random.default_rng(49)
-    base = [
-        jnp.asarray(rng.random((2, 64, 1024), np.float32) * 1.2 - 0.1)
-        for _ in range(4)
-    ]
-    orig = tuning.current
-    for conv in (to_i16_storage, lambda p: p):
-        planes = [conv(p) for p in base]
-        full = cas_parity4_planes_u2(*planes, 0.2, block_rows=16, interpret=True)
-        try:
-            t = orig()
-            tuning.current = lambda: dataclasses.replace(t, quad_wmax=256)
-            monkeypatch.setenv("VKRESAMPLE_QUAD_BT", "16")
-            monkeypatch.setenv("VKRESAMPLE_QUAD_WSB", "512")
-            monkeypatch.setenv("VKRESAMPLE_QUAD_STRIP", "slots")
-            strips = cas_parity4_planes_u2(
-                *planes, 0.2, block_rows=16, interpret=True
-            )
-        finally:
-            tuning.current = orig
-            monkeypatch.delenv("VKRESAMPLE_QUAD_BT")
-            monkeypatch.delenv("VKRESAMPLE_QUAD_WSB")
-            monkeypatch.delenv("VKRESAMPLE_QUAD_STRIP")
-        for a, b in zip(full, strips):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # ---------------------------------------------------------------------------
@@ -561,21 +351,16 @@ def _grid_setup(h, w, u, seed):
 
 
 def test_grid_parity_planes_u3_matches_oracle():
-    """Full e2e u=3: staged grid transform -> grid CAS kernel vs oracle."""
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
-
+    """Full e2e u=3: staged grid transform -> grid CAS vs oracle."""
     Ps, want = _grid_setup(64, 128, 3, 51)
-    outs = cas_parity_grid_planes(Ps, 3, 0.2, interpret=True)
+    outs = cas_parity_planes(Ps, 0.2, 3)
     got = _weave_u(outs, 3, want.shape)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
 def test_grid_parity_planes_u4_strips():
-    """u=4 wide planes route through column strips; result matches the
-    XLA full-array evaluation within the rsqrt rounding LSB."""
-    from vkresample_tpu.ops import cas as cas_ops
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
-
+    """u=4 wide planes: the plane CAS matches the woven full-array
+    evaluation."""
     u = 4
     rng = np.random.default_rng(52)
     v = rng.standard_normal((2, u * 32, u * 1536)).astype(np.float32) * 0.6
@@ -584,112 +369,14 @@ def test_grid_parity_planes_u4_strips():
         for ry in range(u)
         for rx in range(u)
     ]
-    outs = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
-    want = np.asarray(
-        cas_ops.quantize_u8(
-            cas_ops.cas_sharpen(
-                jnp.stack(
-                    [cas_ops.from_i16_storage(p) for p in planes], axis=1
-                )
-                .reshape(2, u, u, 32, 1536)
-                .transpose(0, 3, 1, 4, 2)
-                .reshape(2, u * 32, u * 1536),
-                0.2,
-            )
-        )
-    )
-    got = _weave_u(outs, u, want.shape)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_grid_strip_slots_variant(monkeypatch):
-    """VKRESAMPLE_GRID_STRIP=slots routes the u-generic grid CAS through
-    the slot-resident kernel — bit-identical to the aligned-halo grid
-    kernel, in both the strip (u=4 wide) and full-width (u=3 narrow)
-    regimes, including the image top/bottom clamp rows."""
-    from vkresample_tpu.ops import cas as cas_ops
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
-
-    rng = np.random.default_rng(54)
-    for u, hh, ww in ((4, 32, 1536), (3, 64, 128)):
-        v = rng.standard_normal((2, u * hh, u * ww)).astype(np.float32) * 0.6
-        planes = [
-            cas_ops.to_i16_storage(jnp.asarray(v[:, ry::u, rx::u]))
-            for ry in range(u)
-            for rx in range(u)
-        ]
-        base = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
-        monkeypatch.setenv("VKRESAMPLE_GRID_STRIP", "slots")
-        try:
-            slots = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
-        finally:
-            monkeypatch.delenv("VKRESAMPLE_GRID_STRIP")
-        for a, b in zip(base, slots):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_grid_parity_xla_fallback_matches(monkeypatch):
-    """VKRESAMPLE_GRID_CAS=xla (weave + full-array CAS) agrees with the
-    grid kernel within the rsqrt LSB."""
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
-
-    Ps, want = _grid_setup(64, 128, 3, 53)
-    base = cas_parity_grid_planes(Ps, 3, 0.2, interpret=True)
-    monkeypatch.setenv("VKRESAMPLE_GRID_CAS", "xla")
-    alt = cas_parity_grid_planes(Ps, 3, 0.2, interpret=True)
-    for a, b in zip(base, alt):
-        assert (
-            np.abs(np.asarray(a, int) - np.asarray(b, int)).max() <= 1
-        )
-
-
-def test_grid_geometry_respects_vmem_budget():
-    """The grid CAS geometry stays inside the scoped-VMEM budget at every
-    plane count — including the exotic-fraction counts (p=7 -> 49 planes)
-    whose u=3-tuned defaults OOM'd the real compiler (onchip_r4
-    bigexotic_p7: 28 MB vs the 16 MB limit).  Interpret-mode tests never
-    see Mosaic's limit, so the plan-time estimate is the only gate."""
-    from vkresample_tpu.ops.cas_pallas import (
-        _GRID_VMEM_BUDGET,
-        _CHALO,
-        _grid_geometry,
-        _pad_for,
-    )
-
-    for n, h, Wp, dt in [
-        (49, 128, 2048, np.dtype(np.int16)),  # the failing p=7 c2c geometry
-        (25, 512, 2048, np.dtype(np.int16)),  # p=5 (verified on-chip)
-        (9, 2048, 4096, np.dtype(np.int16)),  # u=3 big tier
-        (49, 128, 2048, np.dtype(np.float32)),
-        (121, 128, 2048, np.dtype(np.int16)),  # p=11 (reference rejects)
-    ]:
-        pad = _pad_for(dt)
-        geom = _grid_geometry(n, h, Wp, pad, dt, 64, 1024)
-        if geom is None:
-            continue  # falls back to XLA — acceptable
-        bt, Wsb, nsW, Wsw = geom
-        est = n * Wsw * bt * (4 * dt.itemsize + 24)
-        assert est <= _GRID_VMEM_BUDGET, (n, h, Wp, dt, geom, est)
-        assert h % bt == 0 and bt % pad == 0
-        assert Wp % Wsb == 0 and (nsW == 1 or Wsb % _CHALO == 0)
-    # the p=7 shape must still take the kernel (not the XLA fallback)
-    assert _grid_geometry(49, 128, 2048, 16, np.dtype(np.int16), 64, 1024) is not None
-    # the sweep-tuned default request (tuning.grid_block=32, wsb=1024:
-    # 7.88 vs 9.07 ms for bt=16, scripts/grid_cas_sweep.py) must survive
-    # the budget UNSHRUNKEN at the u=3 big class it was measured on
-    from vkresample_tpu.core.tuning import DeviceTuning
-
-    gb = DeviceTuning().grid_block
-    geom = _grid_geometry(9, 2048, 4096, 16, np.dtype(np.int16), gb, 1024)
-    assert geom is not None and geom[0] == gb, geom
+    outs = cas_parity_planes(planes, 0.2, u)
+    got = _weave_u(outs, u, (2, u * 32, u * 1536))
+    assert _maxdiff(got, _woven_cas(planes, u, u)) <= 1
 
 
 def test_grid_parity_planes_p7_exotic_matches():
-    """49-plane (p=7 exotic fraction) grid CAS at the narrow-strip
-    geometry matches the XLA full-array evaluation within the rsqrt LSB."""
-    from vkresample_tpu.ops import cas as cas_ops
-    from vkresample_tpu.ops.cas_pallas import cas_parity_grid_planes
-
+    """49-plane (p=7 exotic fraction) grid CAS matches the woven
+    full-array evaluation."""
     u = 7
     rng = np.random.default_rng(55)
     v = rng.standard_normal((1, u * 64, u * 256)).astype(np.float32) * 0.6
@@ -698,97 +385,112 @@ def test_grid_parity_planes_p7_exotic_matches():
         for ry in range(u)
         for rx in range(u)
     ]
-    outs = cas_parity_grid_planes(planes, u, 0.2, interpret=True)
+    outs = cas_parity_planes(planes, 0.2, u)
+    got = _weave_u(outs, u, (1, u * 64, u * 256))
+    assert _maxdiff(got, _woven_cas(planes, u, u)) <= 1
+
+
+# ---------------------------------------------------------------------------
+# plane CAS == woven CAS over the geometry / dtype / factor matrix
+# ---------------------------------------------------------------------------
+
+_GEOMS = {
+    "aligned": (8, 128),   # 128-multiple plane width
+    "nonaligned": (8, 50),
+    "short_odd": (3, 21),  # fewer rows than any tile, odd everything
+}
+
+
+@pytest.mark.parametrize("sharpen", [0.0, 0.2])
+@pytest.mark.parametrize("geom", sorted(_GEOMS))
+@pytest.mark.parametrize("dtname", ["float32", "int16"])
+@pytest.mark.parametrize("p", [2, 3, 4, 7])
+def test_parity_planes_match_woven_cas(p, dtname, geom, sharpen):
+    """cas_parity_planes on p x p planes == quantize_u8(cas_sharpen(.)) on
+    the woven image built from the same stored planes."""
+    h, w = _GEOMS[geom]
+    rng = np.random.default_rng(1000 * p + h + w)
+    v = rng.random((2, p * h, p * w)).astype(np.float32) * 1.3 - 0.1
+    planes = [
+        jnp.asarray(v[:, ry::p, rx::p]) for ry in range(p) for rx in range(p)
+    ]
+    if dtname == "int16":
+        planes = [cas_ops.to_i16_storage(x) for x in planes]
+    outs = cas_parity_planes(planes, sharpen, p)
+    assert len(outs) == p * p
+    assert all(o.shape == (2, h, w) and o.dtype == jnp.uint8 for o in outs)
+    f = [np.asarray(cas_ops.clip_unit(x)) for x in planes]
+    woven = np.zeros((2, p * h, p * w), np.float32)
+    for i, x in enumerate(f):
+        woven[:, i // p :: p, i % p :: p] = x
     want = np.asarray(
-        cas_ops.quantize_u8(
-            cas_ops.cas_sharpen(
-                jnp.stack(
-                    [cas_ops.from_i16_storage(p) for p in planes], axis=1
-                )
-                .reshape(1, u, u, 64, 256)
-                .transpose(0, 3, 1, 4, 2)
-                .reshape(1, u * 64, u * 256),
-                0.2,
-            )
-        )
+        cas_ops.quantize_u8(cas_ops.cas_sharpen(jnp.asarray(woven), sharpen))
     )
-    got = _weave_u(outs, u, want.shape)
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert _maxdiff(_weave_grid(outs, p, p), want) <= 1
 
 
-@pytest.mark.parametrize(
-    "dtname,lo,hi",
-    [("int16", -18000, 18000), ("float32", 0, 0)],
-)
-def test_quad_y4d_transposed_rows_bit_exact(monkeypatch, dtname, lo, hi):
-    """P10/P11 in the staged transform's transposed-row 4D form
-    (..., nd, n2, W) — natural row e*nd + d at [d, e] — through the slot
-    kernels' e-slice DMAs reproduce the flat-plane result bit-exactly:
-    strips regime (Wh > wmax), full-width regime (Wh <= wmax), and the
-    no-usable-strip decode fallback."""
-    import dataclasses
-
-    from vkresample_tpu.core import tuning
-    from vkresample_tpu.ops.cas_pallas import cas_parity4_planes_u2
-
-    rng = np.random.default_rng(5)
-    C, nd, n2 = 2, 16, 8
-    h = nd * n2
-    t = tuning.current()
-    old = tuning.current
-    try:
-        tuning.current = lambda: dataclasses.replace(t, quad_wmax=256)
-        for Wh, wsb_env in ((512, "256"), (256, None), (512, None)):
-            if wsb_env is not None:
-                monkeypatch.setenv("VKRESAMPLE_QUAD_WSB", wsb_env)
-            else:
-                monkeypatch.delenv("VKRESAMPLE_QUAD_WSB", raising=False)
-            if dtname == "int16":
-                flat = [
-                    rng.integers(lo, hi, (C, h, Wh)).astype(np.int16)
-                    for _ in range(4)
-                ]
-            else:
-                flat = [
-                    rng.random((C, h, Wh)).astype(np.float32)
-                    for _ in range(4)
-                ]
-            # 4D form: p4[c, d, e] == flat[c, e*nd + d]
-            p4 = [
-                p.reshape(C, n2, nd, Wh).transpose(0, 2, 1, 3).copy()
-                for p in flat[2:]
-            ]
-            ref = cas_parity4_planes_u2(
-                *[jnp.asarray(p) for p in flat], 0.2,
-                block_rows=1, interpret=True,
-            )
-            got = cas_parity4_planes_u2(
-                jnp.asarray(flat[0]), jnp.asarray(flat[1]),
-                jnp.asarray(p4[0]), jnp.asarray(p4[1]), 0.2,
-                interpret=True, y4d=(nd, n2),
-            )
-            for a, b in zip(ref, got):
-                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    finally:
-        tuning.current = old
+def test_parity_planes_rejects_bad_plane_sets():
+    x = jnp.zeros((1, 4, 4), jnp.float32)
+    with pytest.raises(ValueError):
+        cas_parity_planes([x] * 3, 0.2, 2)
+    with pytest.raises(ValueError):
+        cas_parity_planes([x, x, x, jnp.zeros((1, 4, 5))], 0.2, 2)
 
 
-def test_lane_pad_target_geometry():
-    """The replicate-pad reroutes pad to a width the strip kernels can
-    actually divide: the minimal 128-multiple of an 8640-class plane
-    (4352 = 2^8*17) admits only Wsb=256 (2.0x column-halo reads, 24.2 ms
-    of the 73.4 ms na8640 program in the round-5 attribution); paying
-    160 more lanes buys Wsb=896 (1.29x)."""
-    from vkresample_tpu.ops.cas_pallas import _fit_block, _lane_pad_target
+# ---------------------------------------------------------------------------
+# the GPU kernel (ops/cas_triton.py): interpret mode, lowering, dispatch
+# ---------------------------------------------------------------------------
 
-    got = _lane_pad_target(4320, 1024, 4096)
-    assert got == 4480
-    assert _fit_block(1024, got, 128) == 896
-    # aligned widths and widths under the full-width cap stay minimal
-    assert _lane_pad_target(4096, 1024, 4096) == 4096
-    assert _lane_pad_target(1000, 1024, 4096) == 1024
-    # 10080-class planes (2^5*3^2*5*7): the minimal pad 10112 = 2^7*79
-    # admits no useful strip width, but 10240 keeps Wsb=1024 (1.06x)
-    got = _lane_pad_target(10080, 1024, 4096)
-    assert got == 10240
-    assert _fit_block(1024, got, 128) == 1024
+
+@pytest.mark.parametrize("geom", [(16, 256), (21, 200), (3, 21)])
+@pytest.mark.parametrize("dtname", ["float32", "int16"])
+def test_triton_kernel_matches_plain_interpret(dtname, geom):
+    """The Pallas Triton kernel (interpret mode) equals the plain plane
+    CAS: aligned, ragged (masked last tiles) and shorter-than-a-tile
+    planes, f32 and int16."""
+    from vkresample_tpu.ops.cas_triton import cas_parity_planes_triton
+
+    h, w = geom
+    rng = np.random.default_rng(h * w)
+    planes = [
+        jnp.asarray(rng.random((2, h, w)).astype(np.float32) * 1.3 - 0.1)
+        for _ in range(4)
+    ]
+    if dtname == "int16":
+        planes = [cas_ops.to_i16_storage(p) for p in planes]
+    want = cas_parity_planes(planes, 0.2, 2)
+    got = cas_parity_planes_triton(planes, 0.2, 2, block=(8, 64), interpret=True)
+    assert all(g.shape == (2, h, w) and g.dtype == jnp.uint8 for g in got)
+    assert max(_maxdiff(g, x) for g, x in zip(got, want)) <= 1
+
+
+def test_triton_kernel_lowers_for_cuda():
+    """The kernel lowers through Pallas' Triton route for CUDA (no GPU
+    needed to lower): catches primitives the route cannot express."""
+    import jax
+
+    from vkresample_tpu.ops.cas_triton import cas_parity_planes_triton
+
+    for dt in (jnp.int16, jnp.float32):
+        xs = jnp.zeros((4, 3, 40, 300), dt)
+        f = jax.jit(lambda x: cas_parity_planes_triton(list(x), 0.2, 2))
+        text = f.trace(xs).lower(lowering_platforms=("cuda",)).as_text()
+        assert "triton" in text.lower()
+
+
+def test_quad_cas_dispatch_off_cuda_is_plain():
+    """cas_quad_planes runs the plain function wherever the program is not
+    lowered for CUDA — here, the CPU — with identical pixels."""
+    import jax
+
+    from vkresample_tpu.ops.cas_triton import cas_quad_planes
+
+    rng = np.random.default_rng(71)
+    planes = [
+        cas_ops.to_i16_storage(jnp.asarray(rng.random((3, 24, 136), np.float32)))
+        for _ in range(4)
+    ]
+    got = jax.jit(lambda *p: cas_quad_planes(p, 0.2))(*planes)
+    want = cas_parity_planes(planes, 0.2, 2)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(x))

@@ -66,7 +66,7 @@ def test_sp_dense_rejects_fractional():
 
 
 def test_sp_large_geometry_vs_oracle():
-    """Large-frame pencil run on the full 8-device mesh (VERDICT r1 #7):
+    """Large-frame pencil run on the full 8-device mesh:
     1024x2048 -> 2048x4096 half mode through BOTH sp pipelines, pixel-equal
     to the fp64 oracle within 1 LSB.  Stresses the all-to-all layout math
     and the kpad column padding (w/2+1 = 1025 pads to 1032 for S=8)."""

@@ -86,7 +86,7 @@ def test_identity_upscale_is_cas_only():
     for ch in range(3):
         f = img[:, :, ch].astype(np.float64) / 255.0
         ref[:, :, ch] = oracle.quantize_u8(
-            oracle.cas_sharpen(f, 0.2, magnitude=False)
+            oracle.cas_sharpen(f, 0.2)
         )
     # FFT roundtrip introduces ~1e-15 noise; truncation at integer
     # boundaries can tie-break differently -> allow off-by-one

@@ -86,7 +86,7 @@ def test_odd_height_u1_matches_oracle():
 
 def test_planes_out_matches_woven():
     """planes_out returns (E, D) parity planes equal to the woven output's
-    even/odd rows on every route (CPU here exercises the fallback slice)."""
+    even/odd rows (w=64 takes the rows-parity route)."""
     import functools
 
     import jax
@@ -112,19 +112,46 @@ def test_planes_out_matches_woven():
 
 
 def test_planes_out_quad_matches_woven():
-    """Quad route formats: on CPU the pallas fast path is gated off, so
-    planes_format must be None (CLI then takes the woven path) while the
-    geometry predicate still selects quad for TPU runs.  The quad kernel
-    math itself is oracle-tested in test_cas_pallas; this guards the
-    format-consistency contract between planes_format and _pipeline."""
+    """Route formats depend on the plan alone: a 128-aligned u=2 plan
+    reports 'quad' on every platform, and _pipeline's plane output has
+    the quad layout and equals the woven output.  The parity CAS math
+    itself is oracle-tested in test_cas_pallas."""
+    import functools
+
+    import jax
+    from jax import numpy as jnp
+
     from vkresample_tpu.core.config import Engine, Precision
     from vkresample_tpu.core.plan import UpscalePlan
-    from vkresample_tpu.pipeline.upscale import _parity_route, planes_format
+    from vkresample_tpu.pipeline.upscale import (
+        _parity_route,
+        _pipeline,
+        make_device_banks,
+        planes_format,
+    )
 
     plan = UpscalePlan(h=32, w=128, upscale=2.0, precision=Precision.HALF,
                        engine=Engine.MXU)
     assert _parity_route(plan) == "quad"  # geometry says quad
-    assert planes_format(plan) is None  # but CPU has no pallas fast path
+    assert planes_format(plan) == "quad"  # and so does the route
+    banks = make_device_banks(plan, Engine.MXU)
+    img = np.random.default_rng(62).integers(0, 256, (32, 128, 3), np.uint8)
+    run = lambda po: jax.jit(functools.partial(  # noqa: E731
+        _pipeline, plan=plan, engine=Engine.MXU, planar_out=True,
+        planes_out=po))(jnp.asarray(img), banks)
+    outs = run(True)
+    assert len(outs) == 4 and all(o.shape == (3, 32, 128) for o in outs)
+    # woven callers take the rows route (another transform arm), so the
+    # two agree to the oracle's tolerance rather than bit for bit
+    woven = np.asarray(run(False))
+    want = np.moveaxis(oracle.upscale_oracle(img, plan), -1, 0)
+    assert _maxdiff(woven, want) <= 1
+    for i, o in enumerate(outs):
+        assert _maxdiff(np.asarray(o), want[:, i // 2::2, i % 2::2]) <= 1
+    # DOUBLE stays woven
+    plan_d = UpscalePlan(h=32, w=128, upscale=2.0,
+                         precision=Precision.DOUBLE, engine=Engine.MXU)
+    assert planes_format(plan_d) is None
 
     # odd-width geometry falls back to the rows formulation
     plan2 = UpscalePlan(h=32, w=96, upscale=2.0, engine=Engine.MXU)
@@ -135,11 +162,9 @@ def test_planes_out_quad_matches_woven():
 
 
 def test_pipeline_big_quad_banks_route(monkeypatch):
-    """_pipeline's big int8-only bank gating (use_big_quad): with pallas
-    forced on, parity-plane output and the i16 codec, the int8-only bank
-    set drives the quad branch (the small geometry lands on the quad
-    kernel's XLA fallback, so this runs fully on CPU) and the woven
-    result matches the oracle."""
+    """_pipeline's big int8-only bank gating (use_big_quad): with
+    parity-plane output and the i16 codec, the int8-only bank set drives
+    the quad branch and the woven result matches the oracle."""
     import functools
 
     import jax
@@ -154,7 +179,6 @@ def test_pipeline_big_quad_banks_route(monkeypatch):
     plan = UpscalePlan(h=32, w=128, upscale=2.0, precision=Precision.HALF,
                        engine=Engine.MXU)
     banks = jax.device_put(dense.r2c_quad_int8_banks(plan))
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     img = np.random.default_rng(77).integers(0, 256, (32, 128, 3), np.uint8)
     outs = jax.jit(
         functools.partial(up._pipeline, plan=plan, engine=Engine.MXU,

@@ -104,11 +104,10 @@ def test_staged_quad_matches_oracle():
 @pytest.mark.parametrize("h,w", [(32, 128), (96, 120)])
 def test_pipeline_staged_banks_route(monkeypatch, h, w):
     """_pipeline with staged banks: parity-plane output matches the
-    oracle (quad CAS kernel runs its XLA fallback on CPU), and the woven
+    oracle, and the woven
     upscale_precas_mxu fallback handles staged banks too.  (96, 120)
     pins the non-128-aligned big-width class end to end: above the
-    dense cap _parity_route must send any even width to quad (round 5 —
-    previously the ~7x phases cliff, VERDICT r4 missing #1)."""
+    dense cap _parity_route must send any even width to quad."""
     import functools
 
     from vkresample_tpu.fft import mxu_pipeline
@@ -127,7 +126,6 @@ def test_pipeline_staged_banks_route(monkeypatch, h, w):
     banks = jax.device_put(
         {k: jnp.asarray(v) for k, v in staged.r2c_quad_staged_banks(plan).items()}
     )
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     img = np.random.default_rng(11).integers(0, 256, (h, w, 3), np.uint8)
     outs = jax.jit(
         functools.partial(
@@ -152,7 +150,7 @@ def test_pipeline_staged_banks_route(monkeypatch, h, w):
         )(jnp.asarray(img), banks)
     )
     np.testing.assert_array_equal(wov, got)
-    # woven fallback path (non-Pallas callers, -validate, CPU tests)
+    # woven fallback path (upscale_precas_mxu, used by DOUBLE)
     x = jnp.moveaxis(jnp.asarray(img, jnp.float32) / 255.0, -1, -3)
     v = mxu_pipeline.upscale_precas_mxu(x, plan, banks)
     u2 = float(np.float32(plan.upscale)) ** 2
@@ -413,15 +411,12 @@ def test_pipeline_grid_banks_route(monkeypatch):
     from vkresample_tpu.pipeline import upscale as up
 
     # h=32 is the smallest height with a Cooley-Tukey split (16 has
-    # none), and it keeps the grid CAS on its degenerate-geometry XLA
-    # fallback (h < bt + 2*pad; CPU cannot run compiled pallas_call —
-    # the kernel math is covered in test_cas_pallas with interpret=True)
+    # none); the parity CAS math is covered in test_cas_pallas
     plan = UpscalePlan(
         h=32, w=128, upscale=3.0, precision=Precision.HALF, engine=Engine.MXU
     )
     monkeypatch.setattr(mxu_pipeline, "DENSE_MAX", 64)
     assert mxu_pipeline.big_grid_selected(plan)
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     assert up.planes_format(plan) == "grid"
     banks = mxu_pipeline.make_dense_banks(plan, "float32", planes=True)
     assert banks is not None and "sgx1_b1" in banks
@@ -448,7 +443,7 @@ def test_pipeline_grid_banks_route(monkeypatch):
         )(jnp.asarray(img), banks)
     )
     np.testing.assert_array_equal(wov, got)
-    # woven fallback path (non-Pallas callers, -validate, CPU tests)
+    # woven fallback path (upscale_precas_mxu, used by DOUBLE)
     x = jnp.moveaxis(jnp.asarray(img, jnp.float32) / 255.0, -1, -3)
     v = mxu_pipeline.upscale_precas_mxu(x, plan, banks)
     assert np.abs(np.asarray(v, np.float64) - _precas_oracle(img, plan)).max() < 2e-3
@@ -528,8 +523,8 @@ def test_frac_params_accept_reject_geometry():
     )
     assert plan.H * 5 == plan.h * 6 and plan.W * 5 == plan.w * 6
     assert staged.frac_params(plan) is None
-    # (w // q) % 128 != 0 is ACCEPTED since round 5 (lane-padding tax +
-    # CAS XLA fallback instead of the ~7x phases cliff)
+    # (w // q) % 128 != 0 is ACCEPTED (padding tax instead of the
+    # phases route)
     plan = UpscalePlan(
         h=96, w=384, upscale=1.5, precision=Precision.HALF, engine=Engine.XLA
     )
@@ -545,8 +540,8 @@ def test_big_frac_without_grid_route_fails_clean():
     """A >DENSE_MAX fractional frame the staged grid cannot take (5/3:
     the C-float band math drops a y bin) must raise a clean ValueError
     instead of dispatching into the big-spectrum route, which
-    materializes the full H x W complex spectrum and is recorded as
-    non-surviving beyond the dense cap (docs/STATUS.md)."""
+    materializes the full H x W complex spectrum and does not fit beyond
+    the dense cap."""
     from vkresample_tpu.fft import mxu_pipeline
 
     plan = UpscalePlan(
@@ -578,7 +573,6 @@ def test_pipeline_frac_banks_route(monkeypatch):
     )
     monkeypatch.setattr(mxu_pipeline, "DENSE_MAX", 64)
     assert mxu_pipeline.big_grid_selected(plan)
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     assert up.planes_format(plan) == "grid"
     banks = mxu_pipeline.make_dense_banks(plan, "float32", planes=True)
     assert banks is not None and "sgx1_b1" in banks
@@ -606,7 +600,7 @@ def test_pipeline_frac_banks_route(monkeypatch):
         )(jnp.asarray(img), banks)
     )
     np.testing.assert_array_equal(wov, got)
-    # woven fallback path (non-Pallas callers, -validate, CPU tests)
+    # woven fallback path (upscale_precas_mxu, used by DOUBLE)
     x = jnp.moveaxis(jnp.asarray(img, jnp.float32) / 255.0, -1, -3)
     v = mxu_pipeline.upscale_precas_mxu(x, plan, banks)
     assert np.abs(np.asarray(v, np.float64) - _precas_oracle(img, plan)).max() < 2e-3
@@ -687,8 +681,8 @@ def test_c2c_grid_params_rejects():
         engine=Engine.XLA,
     )
     assert staged.c2c_grid_params(plan) is None
-    # (w // q) % 128 != 0 is ACCEPTED since round 5 (lane-padding tax
-    # instead of the phases cliff) — see x_split_prefer
+    # (w // q) % 128 != 0 is ACCEPTED (padding tax instead of the
+    # phases route) — see x_split_prefer
     plan = UpscalePlan(
         h=96, w=384, upscale=1.5, r2c=False, precision=Precision.HALF,
         engine=Engine.XLA,
@@ -716,7 +710,6 @@ def test_pipeline_c2c_grid_route(monkeypatch, h, u, nplanes, pshape):
     )
     monkeypatch.setattr(mxu_pipeline, "DENSE_MAX", 64)
     assert mxu_pipeline.big_grid_selected(plan)
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     assert up.planes_format(plan) == "grid"
     banks = mxu_pipeline.make_dense_banks(plan, "float32", planes=True)
     assert banks is not None and "cg_ay" in banks
@@ -745,7 +738,7 @@ def test_pipeline_c2c_grid_route(monkeypatch, h, u, nplanes, pshape):
         )(jnp.asarray(img), banks)
     )
     np.testing.assert_array_equal(wov, got)
-    # woven fallback path (non-Pallas callers, -validate, CPU tests)
+    # woven fallback path (upscale_precas_mxu, used by DOUBLE)
     x = jnp.moveaxis(jnp.asarray(img, jnp.float32) / 255.0, -1, -3)
     v = mxu_pipeline.upscale_precas_mxu(x, plan, banks)
     assert np.abs(
@@ -844,7 +837,6 @@ def test_frac_grid_optin_below_cap(monkeypatch):
     assert up.planes_format(plan) in (None, "grid")
     banks = mxu_pipeline.make_dense_banks(plan, "float32", planes=True)
     assert banks is not None and "sgx1_b1" in banks
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     banks = jax.device_put({k: jnp.asarray(v) for k, v in banks.items()})
     img = np.random.default_rng(37).integers(0, 256, (64, 256, 3), np.uint8)
     outs = jax.jit(
@@ -873,7 +865,6 @@ def test_channel_serial_matches_batched(monkeypatch):
     banks = jax.device_put(
         {k: jnp.asarray(v) for k, v in staged.r2c_quad_staged_banks(plan).items()}
     )
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     img = np.random.default_rng(23).integers(0, 256, (32, 128, 3), np.uint8)
 
     def run(planes_out, planar_out):
@@ -896,9 +887,8 @@ def test_channel_serial_matches_batched(monkeypatch):
         np.testing.assert_array_equal(g, r)
     assert got_woven.shape == ref_woven.shape
     np.testing.assert_array_equal(got_woven, ref_woven)
-    # the auto gate: frames with on-chip batched evidence stay batched
-    # (3-channel 16K->32K: 127.5 batched vs 131.2 serial, big16k_3ch.py);
-    # the unverified next tier up serializes
+    # the auto gate (CHANNEL_SERIAL_ELEMS): the 3-channel 16K->32K frame
+    # stays batched, the next tier up serializes
     monkeypatch.delenv("VKRESAMPLE_CHANNEL_SERIAL", raising=False)
     assert not up._channel_serial(plan, jnp.asarray(img))
     big16 = UpscalePlan(
@@ -915,15 +905,15 @@ def test_channel_serial_matches_batched(monkeypatch):
     assert up._channel_serial(
         big32, jax.ShapeDtypeStruct((16384, 32768, 3), jnp.uint8)
     )
-    # batched (leading-dim) inputs take the same gate (round 5: a pod's
-    # dp-sharded huge frames run channel-serial per chip)
+    # batched (leading-dim) inputs take the same gate (dp-sharded huge
+    # frames run channel-serial per device)
     assert up._channel_serial(
         big32, jax.ShapeDtypeStruct((4, 16384, 32768, 3), jnp.uint8)
     )
 
 
 def test_channel_serial_batched_matches(monkeypatch):
-    """The channel-serial lax.map route is batch-polymorphic (round 5):
+    """The channel-serial lax.map route is batch-polymorphic:
     with a leading frame dim, every output surface must match the
     batched-channels route elementwise and keep the (N, C, ...) planar
     axis order."""
@@ -937,7 +927,6 @@ def test_channel_serial_batched_matches(monkeypatch):
     banks = jax.device_put(
         {k: jnp.asarray(v) for k, v in staged.r2c_quad_staged_banks(plan).items()}
     )
-    monkeypatch.setattr(up, "_use_pallas_cas", lambda p: True)
     imgs = np.random.default_rng(29).integers(0, 256, (2, 32, 128, 3), np.uint8)
 
     def run(planes_out, planar_out):
@@ -964,9 +953,8 @@ def test_channel_serial_batched_matches(monkeypatch):
 def test_x_split_prefer_lane_exact(monkeypatch):
     """The staged x (lanes) convs prefer n1 = 128*q so BOTH the input
     view (..., n2, n1) and S3's natural "...ed" output view are
-    lane-exact — the composed-program layout win behind the round-4
-    8K->16K 31.1 -> 25.4 ms fix (scripts/xsplit_ab.py).  Pins the
-    preference, the q scaling, and the env override."""
+    128-exact in their minor dim.  Pins the preference, the q scaling,
+    and the env override."""
     monkeypatch.delenv("VKRESAMPLE_XSPLIT", raising=False)
     assert staged.x_split_prefer() == 128
     assert staged.x_split_prefer(4) == 512
@@ -982,20 +970,19 @@ def test_x_split_prefer_lane_exact(monkeypatch):
         engine=Engine.MXU,
     )
     banks = staged.r2c_quad_staged_banks(plan)
-    assert staged.factored_split(banks) == (128, 8)
+    assert (banks["stx_m"].shape[2], banks["stx_b1"].shape[0]) == (128, 8)
     monkeypatch.setenv("VKRESAMPLE_XSPLIT", "64")
     assert staged.x_split_prefer() == 64
 
 
 def test_x_split_prefer_non_aligned_window(monkeypatch):
-    """Widths 128*q does not divide pick the divisor in the MXU window
-    [64q, 320q] minimizing summed padded-vreg waste across the S1 input
-    (n1 lanes) and S3 output (n1/q lanes) views — the round-5 gate
-    relaxation that keeps any even 7-smooth width on the staged tier
-    (reference: vkFFT schedules any 7-smooth size, vkFFT.h:4707-5189).
-    Pins the on-chip-validated picks: 8640 = 2^6*3^3*5 -> n1=120 (pads
-    to 128, ~6.7%/view; the na8640 tier, 70.1 ms official) and
-    10080 = 2^5*3^2*5*7 -> n1=126 (pads to 128, ~1.6%/view)."""
+    """Widths 128*q does not divide pick the divisor in the window
+    [64q, 320q] minimizing summed padding waste across the S1 input
+    (n1) and S3 output (n1/q) views — this keeps any even 7-smooth width
+    on the staged tier (reference: vkFFT schedules any 7-smooth size,
+    vkFFT.h:4707-5189).  Pins the picks: 8640 = 2^6*3^3*5 -> n1=120
+    (pads to 128, ~6.7%/view) and 10080 = 2^5*3^2*5*7 -> n1=126 (pads
+    to 128, ~1.6%/view)."""
     monkeypatch.delenv("VKRESAMPLE_XSPLIT", raising=False)
     assert staged.x_split_prefer(n=8640) == 120
     assert staged.x_split_prefer(n=10080) == 126
@@ -1006,31 +993,6 @@ def test_x_split_prefer_non_aligned_window(monkeypatch):
     # decimated non-aligned: the divisor stays a multiple of q
     n1 = staged.x_split_prefer(2, n=8640)
     assert n1 % 2 == 0 and 8640 % n1 == 0
-
-
-def test_conv_apply_rows_emit4d_bit_exact():
-    """emit4d returns the transposed-row 4D form: out4[..., d, e, :] ==
-    flat[..., e*nd + d, :] bit-exactly, including the dc_add epilogue."""
-    rng = np.random.default_rng(7)
-    k = rng.random(64)
-    banks = {
-        key: jnp.asarray(v) for key, v in staged.conv_banks(k, "t_").items()
-    }
-    x = jnp.asarray(rng.random((3, 64, 128)).astype(np.float32))
-    dc = jnp.asarray(
-        rng.random((3, banks["t_m"].shape[4], 128)).astype(np.float32)
-    )
-    hi = jax.lax.Precision.HIGHEST
-    for dca in (None, dc):
-        flat = staged.conv_apply_rows(x, banks, "t_", hi, dc_add=dca)
-        four = staged.conv_apply_rows(
-            x, banks, "t_", hi, dc_add=dca, emit4d=True
-        )
-        nd, n2 = four.shape[-3], four.shape[-2]
-        np.testing.assert_array_equal(
-            np.asarray(flat),
-            np.asarray(four).swapaxes(-3, -2).reshape(np.asarray(flat).shape),
-        )
 
 
 def test_conv_apply_rows_epilogue_bit_exact():
@@ -1066,32 +1028,3 @@ def test_conv_apply_rows_epilogue_bit_exact():
     flat2 = staged.conv_apply_rows(dec(enc(x)), banks, "t_", hi)
     want2 = jnp.sqrt(flat2 * flat2 + (rowv * lanev) ** 2)
     np.testing.assert_array_equal(np.asarray(fused2), np.asarray(want2))
-
-
-def test_quad_staged_rows4d_matches_flat():
-    """r2c_quad_staged(rows4d=True) returns P10/P11 in the 4D form with
-    IDENTICAL stored values to the flat run (pure output permutation)."""
-    from vkresample_tpu.ops import cas as cas_ops
-
-    plan = UpscalePlan(
-        h=64, w=256, upscale=2.0, precision=Precision.HALF, engine=Engine.MXU
-    )
-    assert staged.staged_supported(plan)
-    banks = {
-        k: jnp.asarray(v)
-        for k, v in staged.r2c_quad_staged_banks(plan).items()
-    }
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.integers(0, 256, (3, 64, 256), np.uint8))
-    codec = dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-    hi = jax.lax.Precision.HIGHEST
-    Pf = staged.r2c_quad_staged(x, banks, hi, **codec)
-    P4 = staged.r2c_quad_staged(x, banks, hi, rows4d=True, **codec)
-    np.testing.assert_array_equal(np.asarray(Pf[0]), np.asarray(P4[0]))
-    np.testing.assert_array_equal(np.asarray(Pf[1]), np.asarray(P4[1]))
-    for j in (2, 3):
-        p4 = np.asarray(P4[j])
-        assert p4.ndim == np.asarray(Pf[j]).ndim + 1
-        nd, n2 = p4.shape[-3], p4.shape[-2]
-        flat = p4.swapaxes(-3, -2).reshape(p4.shape[:-3] + (nd * n2, p4.shape[-1]))
-        np.testing.assert_array_equal(np.asarray(Pf[j]), flat)

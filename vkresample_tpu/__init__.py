@@ -1,9 +1,10 @@
-"""vkresample_tpu — TPU-native FFT-based real-time image upscaler.
+"""vkresample_tpu — FFT-based real-time image upscaler on JAX/XLA.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of DTolm/VkResample
-(real-time frequency-domain upscaling + FidelityFX-CAS sharpening), designed
-for TPU hardware: MXU matmul FFTs, trace-time kernel specialization, fused
-uint8 boundaries, and frame sharding over device meshes.
+A ground-up JAX/XLA rebuild of the capabilities of DTolm/VkResample
+(real-time frequency-domain upscaling + FidelityFX-CAS sharpening):
+matmul-form FFTs, trace-time specialization, uint8 device boundaries,
+parity-plane CAS whose planes the PNG encoder weaves, and frame sharding
+over device meshes.
 
 Public API:
     upscale(img, upscale, precision=..., sharpen=...) -> uint8 image

@@ -7,7 +7,8 @@ Mirrors the reference's flag surface and defaults exactly
     -i NAME -o NAME
     -ifolder X -ofolder X -numfiles X -numthreads X
 
-plus TPU-native extras: -engine {auto,xla,mxu}, -c2c, -batch N.
+plus extras: -engine {auto,xla,mxu}, -c2c, -batch N, -validate, -profile,
+-resume.
 
 Parsing is a hand-rolled argv scan (findFlag/getFlagValue semantics,
 VkResample.cpp:1782-1794) because the reference's single-dash long flags
@@ -20,10 +21,10 @@ import time
 from typing import List, Optional
 
 HELP = """\
-vkresample-tpu v{version} — TPU-native FFT-based upscaling (capabilities of VkResample v1.0.2)
+vkresample-tpu v{version} — FFT-based upscaling on JAX/XLA (capabilities of VkResample v1.0.2)
 Works with png images only, for now!
 	-h: print help
-	-devices: print the list of available TPU/accelerator devices
+	-devices: print the list of available accelerator devices
 	-d X: select device (default 0)
 	-u X: specify upscale factor (float, make sure that upscaled image can be represented as a multiplication of 2s, 3s, 5s and 7s)
 	-p X: specify precision (0 - single, 1 - double, 2 - half, default - single)
@@ -37,7 +38,7 @@ Batched mode:
 	-ofolder X: specify output folder plus file prefix, like outp/img
 	-numfiles X: specify how many images to upscale. They should have names like prefix + 000001.png with numbers padded with zeros to six digits. Temporary limitation.
 	-numthreads X: specify how many threads to launch. Used to speed up png reads
-TPU-native extras:
+Extras:
 	-engine X: fft engine: auto (default), mxu (matmul FFT), xla (jnp.fft)
 	-c2c: use the full-complex spectrum path instead of R2C
 	-batch X: frames per device dispatch in batched mode (default: auto)
@@ -152,10 +153,12 @@ def _parse(argv: List[str]):
 
 
 # per-precision uint8 validation tolerance against the fp64 oracle.
-# DOUBLE allows 1 LSB: TPU f64 matmuls are software-emulated and round
-# differently from the CPU oracle (measured maxdiff 1 on v5e; exact 0 on
-# the CPU backend).  HALF holds 1 LSB too: its int16 Q2.14 pre-CAS storage
-# quantizes at ~0.008 LSB and its bf16_3x matmuls are ~fp32-accurate.
+# Every mode allows 1 LSB: the output is a truncating quantization, so a
+# pixel whose exact value sits on an integer boundary flips by one under
+# any change of summation order.  DOUBLE runs native f64 on the GPU, but
+# its staged and dense matmuls still sum in another order than numpy's
+# FFT; HALF adds its int16 Q2.14 pre-CAS storage (~0.008 LSB) and its
+# matmul precision (core/config.py Precision.matmul_precision).
 _VALIDATE_TOL = {0: 1, 1: 1, 2: 1}
 
 
@@ -195,7 +198,7 @@ def _make_plan(cfg, extras, h, w):
 
 
 def _hbm_estimate_mb(plan) -> int:
-    """Printed HBM footprint, mirroring the reference's VRAM line
+    """Printed device-memory footprint, mirroring the reference's VRAM line
     (VkResample.cpp:1450: inputBufferSize + 2*bufferSize)."""
     cs = 16 if plan.precision.name == "DOUBLE" else 8  # complex element bytes
     small = 3 * (plan.w // 2 + 1) * plan.h * cs
@@ -219,14 +222,15 @@ def run_single(cfg, extras) -> int:
         return 1
     h, w = img.shape[:2]
     plan = _make_plan(cfg, extras, h, w)
-    print(f"HBM per device: {_hbm_estimate_mb(plan)} MB")
+    print(f"Device memory per device: {_hbm_estimate_mb(plan)} MB")
 
     dev = jax.devices()[cfg.device_id]
     # planar device output (like the reference's planar GPU buffers); the
     # native PNG encoder interleaves channels during encode.  Banks and
     # compilation are committed to the same -d device as the input.
-    # u=2 plans emit PARITY PLANES — the fused per-parity CAS kernels'
-    # native layouts ('quad': both axes split, 'rows': even/odd rows);
+    # parity-capable plans emit PARITY PLANES — the per-parity CAS's
+    # native layouts ('quad': both axes split, 'rows': even/odd rows,
+    # 'grid': u x u);
     # the encoder's row loop interleaves them for free
     # (pipeline/upscale.py planes_format).
     from .pipeline.upscale import planes_format
@@ -319,7 +323,7 @@ def run_batched(cfg, extras) -> int:
         return 1
     h, w = first.shape[:2]
     plan = _make_plan(cfg, extras, h, w)
-    print(f"HBM per device: {_hbm_estimate_mb(plan)} MB")
+    print(f"Device memory per device: {_hbm_estimate_mb(plan)} MB")
 
     n_dev = jax.device_count()
     mesh = None
@@ -411,6 +415,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     cfg, extras = parsed
     print("vkresample-tpu - FFT based upscaling")
+    from .io.png import codec_name
+
+    try:
+        codec_name()
+    except RuntimeError as e:
+        print(f"Error: {e}")
+        return 1
     from .core.bankcache import enable_compilation_cache
 
     enable_compilation_cache()

@@ -1,20 +1,20 @@
-"""Disk cache for plan-time bank pytrees.
+"""Disk caches for plan-time bank pytrees and compiled executables.
 
-Big-geometry bank construction is minutes of host numpy (the 8K int8
-dense tier's rank-1 staging measured ~245 s, docs/STATUS.md) — fine for
-a resident server that builds once, painful for one-shot CLI runs.  The
-reference has no equivalent cost (VkFFT uploads LUTs computed in
-milliseconds, vkFFT.h:6157-6308), so the TPU build hides it behind a
+Big-geometry bank construction is seconds to minutes of host numpy —
+fine for a resident server that builds once, painful for one-shot CLI
+runs.  The reference has no equivalent cost (VkFFT uploads LUTs computed
+in milliseconds, vkFFT.h:6157-6308), so this build hides it behind a
 versioned on-disk cache: the second CLI invocation at the same geometry
 skips staging entirely.
 
 Layout: one .npz per bank set under $VKRESAMPLE_CACHE_DIR (default
-~/.cache/vkresample), keyed by a hash of (cache version, builder tag,
-plan geometry, dtype, and every env knob that changes bank CONTENTS).
-bfloat16 arrays (no portable numpy serialization) ride as uint16 views
-with a JSON dtype manifest.  Writes are atomic (tmp + rename) and any
-unreadable entry falls back to a rebuild, so the cache can never produce
-worse results than no cache.  VKRESAMPLE_NO_BANK_CACHE=1 disables.
+<checkout>/.cache, listed in .gitignore), keyed by a hash of (cache
+version, builder tag, plan geometry, dtype, and every env knob that
+changes bank CONTENTS).  bfloat16 arrays (no portable numpy
+serialization) ride as uint16 views with a JSON dtype manifest.  Writes
+are atomic (tmp + rename) and any unreadable entry falls back to a
+rebuild, so the cache can never produce worse results than no cache.
+VKRESAMPLE_NO_BANK_CACHE=1 disables.
 """
 from __future__ import annotations
 
@@ -30,11 +30,10 @@ import numpy as np
 # v3: staged conv_banks actually inherits the balanced n1<=64 split
 #     default (v2 intended this but conv_banks' own prefer=128 won)
 # v5: staged banks carry dc0 kernel DC gains (bf16c)
-# v7: staged x (lanes) convs prefer n1 = 128*q — lane-exact composed
-#     layout (the x->y boundary relayout disappears; round-4 HLO
-#     attribution)
+# v7: staged x (lanes) convs prefer n1 = 128*q (128-exact minor dims
+#     at the x->y boundary)
 # v8: x prefer additionally doubles until n2 <= 64 (the w=16384
-#     boundary relayouts; scripts/split16k_ab.py)
+#     boundary relayouts)
 CACHE_VERSION = 8
 
 # cache only geometries where host staging is actually noticeable; small
@@ -44,7 +43,6 @@ MIN_CACHED_DIM = 4096
 # env knobs that change bank CONTENTS (not just route selection) — part
 # of the key so a knob flip can never serve stale banks
 _CONTENT_KNOBS = (
-    "VKRESAMPLE_YCAS_BANKS",
     "VKRESAMPLE_NO_INT8",
     "VKRESAMPLE_HALF_STORAGE",
     "VKRESAMPLE_MM_PRECISION",
@@ -54,39 +52,37 @@ _CONTENT_KNOBS = (
 )
 
 
+# the checkout this package lives in: caches stay inside it
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
 def cache_dir() -> str:
-    d = os.environ.get("VKRESAMPLE_CACHE_DIR")
-    if not d:
-        d = os.path.join(os.path.expanduser("~"), ".cache", "vkresample")
-    return d
+    return os.environ.get("VKRESAMPLE_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".cache"
+    )
 
 
 def enable_compilation_cache() -> None:
-    """Persist compiled XLA executables across processes.
+    """Persist compiled XLA executables across processes, so the second
+    run of the same plan geometry loads its executables from disk instead
+    of compiling (the reference pays milliseconds of glslang per shader,
+    SURVEY §1).  Keying (jax/backend versions, HLO, flags) is jax's own.
 
-    Remote TPU compiles run 20 s (flagship) to ~17 min (big fractional
-    grids, docs/STATUS.md round-5 queue A) per program; the reference
-    pays milliseconds of glslang per shader (SURVEY §1), so recompiling
-    every CLI invocation is this build's one interactive-latency gap.
-    jax's persistent compilation cache closes it the same way this
-    module's bank cache hides host staging: the second run of the same
-    plan geometry loads the executable from disk.  Keying (jax/backend
-    versions, HLO, flags) is jax's own; backends that can't serialize
-    executables log a warning and fall back to compiling, so enabling
-    this can never produce worse results than not.  Cache lives beside
-    the banks ($VKRESAMPLE_CACHE_DIR/xla, default ~/.cache/vkresample/
-    xla); VKRESAMPLE_NO_COMPILE_CACHE=1 disables.
-    """
-    if os.environ.get("VKRESAMPLE_NO_COMPILE_CACHE"):
+    Where JAX_COMPILATION_CACHE_DIR is set, jax already uses it and this
+    sets nothing.  Otherwise the cache lives at the fixed path
+    cache_dir()/xla: the directory is part of the cache's key, so it must
+    not move between runs.  VKRESAMPLE_NO_COMPILE_CACHE=1 disables."""
+    if os.environ.get("VKRESAMPLE_NO_COMPILE_CACHE") or os.environ.get(
+        "JAX_COMPILATION_CACHE_DIR"
+    ):
         return
     import jax
 
     d = os.path.join(cache_dir(), "xla")
     os.makedirs(d, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", d)
-    # the default 1 s floor skips tiny programs (oracle helpers, probes)
-    # but keeps every real pipeline/plan executable
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def _key(tag: str, plan, dtype: str) -> str:

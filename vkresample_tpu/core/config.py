@@ -1,4 +1,4 @@
-"""Run configuration for the TPU-native FFT upscaler.
+"""Run configuration for the FFT upscaler.
 
 Mirrors the capability surface of the reference's ``VkResampleConfiguration``
 (/root/reference/VkResample.cpp:45-59) and its CLI defaults
@@ -10,10 +10,11 @@ Precision modes (reference: VkResample.cpp:1329-1343, 1420-1422):
     0 - single:  fp32 storage + compute
     1 - double:  fp64 storage + compute
     2 - half:    half-precision *memory only* (uint8/low-precision at the
-        HBM boundary, fp32 compute).  The reference stores the staged input
-        in IEEE fp16 and computes in fp32 (``halfPrecisionMemoryOnly``,
-        vkFFT.h:55); on TPU we ingest raw uint8 (half the bytes of fp16)
-        and compute in fp32, which strictly dominates.
+        device-memory boundary, fp32 compute).  The reference stores the
+        staged input in IEEE fp16 and computes in fp32
+        (``halfPrecisionMemoryOnly``, vkFFT.h:55); this build ingests raw
+        uint8 (half the bytes of fp16), stores pre-CAS planes as int16
+        Q2.14, and computes in fp32.
 """
 from __future__ import annotations
 
@@ -52,12 +53,17 @@ class Precision(enum.IntEnum):
 
     @property
     def matmul_precision(self):
-        """MXU contraction precision per mode.
+        """Dense-tier contraction precision per mode.
 
-        SINGLE/DOUBLE use HIGHEST (exact fp32 accumulation — strict
-        oracle parity).  HALF uses HIGH (bf16_3x operand decomposition,
-        ~fp32-accurate at ~2x the speed of HIGHEST) — the mode whose
-        reference counterpart already tolerates fp16 storage error.
+        SINGLE/DOUBLE use HIGHEST (full fp32 / fp64 products — the modes'
+        own definition).  HALF uses the three-pass bf16 algorithm
+        (BF16_BF16_F32_X3: hi/lo bf16 operand split, f32 accumulation).
+        On an NVIDIA H100 (700 W) every HALF tier holds <= 1 uint8 LSB
+        against the fp64 oracle at its timed size with it, where a single
+        TF32 pass (Precision.HIGH on the GPU) does not: maxdiff 2 at the
+        flagship f32-y arm and at -u 1.5, 3 at 8K->16K.  Among the
+        candidates that hold the bound (BF16x3, TF32x3, HIGHEST) it is the
+        fastest (PERF.md, Findings).
         Override with env VKRESAMPLE_MM_PRECISION=default|high|highest.
         """
         import os
@@ -72,7 +78,7 @@ class Precision(enum.IntEnum):
                 "highest": jax.lax.Precision.HIGHEST,
             }[ov.lower()]
         if self is Precision.HALF:
-            return jax.lax.Precision.HIGH
+            return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
         return jax.lax.Precision.HIGHEST
 
 
@@ -82,10 +88,11 @@ class Engine(enum.Enum):
     AUTO   - pick MXU tier when the plan supports it, else XLA.
     XLA    - jnp.fft (XLA's native FFT op).  Correct for any size; oracle-
              aligned reference tier.
-    MXU    - mixed-radix matmul FFT specialized at trace time (the TPU
-             analog of VkFFT's generated shaders, vkFFT.h:211-4642), with
-             native frequency-domain zero-padding: padded bins are never
-             computed or materialized.
+    MXU    - matmul-form FFTs (dense, staged or mixed-radix) specialized
+             at trace time (the analog of VkFFT's generated shaders,
+             vkFFT.h:211-4642), with native frequency-domain
+             zero-padding: padded bins are never computed or
+             materialized.
     """
 
     AUTO = "auto"

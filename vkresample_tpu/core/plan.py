@@ -1,6 +1,6 @@
 """Upscale plan: all static geometry derived from (h, w, upscale, precision).
 
-This is the TPU analog of the reference's plan-time work: building the
+This is the analog of the reference's plan-time work: building the
 forward/inverse ``VkFFTConfiguration`` pair and the shift/sharpen pass
 geometry (/root/reference/VkResample.cpp:1371-1617).  Everything here is
 static (Python-time) so that the jitted pipeline is fully shape-specialized,

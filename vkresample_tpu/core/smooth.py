@@ -5,10 +5,10 @@ and errors on anything else (vkFFT.h:4716-4726; CLI help VkResample.cpp:1813).
 It then groups prime factors into butterfly radixes {8,4,2,3,5,7} per pass
 (vkFFT.h:5022-5186).
 
-On TPU the analogous planning question is different: the hot compute unit is
-the 128x128 MXU, so we group prime factors into *composite* mixed-radix
-factors as close to 128 as possible — each FFT stage is then a batched
-(factor x factor) DFT-matrix contraction that tiles perfectly onto the MXU.
+Here the planning question is different: each FFT stage is a batched
+(factor x factor) DFT-matrix contraction on the matrix units, so prime
+factors are grouped into *composite* mixed-radix factors as close to 128
+as possible.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Complex arithmetic over explicit (re, im) float pairs.
 
-TPU compute units operate on real tiles; representing complex tensors as
-two real arrays lets every complex matmul lower to real MXU matmuls (3 per
-complex product via Karatsuba with precomputed matrix sums) and keeps
-layouts fully under our control — the TPU analog of VkFFT generating
+Representing complex tensors as two real arrays lets every complex
+matmul lower to real matmuls (3 per complex product via Karatsuba with
+precomputed matrix sums) and keeps layouts fully under our control — the
+analog of VkFFT generating
 scalar-pair arithmetic in its shaders (vkFFT.h:731-1182 butterflies).
 """
 from __future__ import annotations

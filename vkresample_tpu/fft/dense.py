@@ -1,14 +1,14 @@
 """Dense DFT engine: every transform axis as one constant-matrix contraction.
 
-On TPU, for the sizes this application lives at (<= 4K), the O(N^2) dense
-DFT beats O(N log N) Cooley-Tukey: FLOPs ride the 128x128 MXU at full rate
-with ZERO inter-stage relayouts (the mixed-radix path pays a full HBM
-round-trip per stage for its reshape/transpose), and the zero-band-aware
-inverse collapses into a *rectangular* (N_out x n_kept) matrix that
+For the sizes this application lives at (<= 4K), the O(N^2) dense DFT is
+one large matrix product per axis with ZERO inter-stage relayouts (the
+mixed-radix path pays a full device-memory round-trip per stage for its
+reshape/transpose), and the zero-band-aware inverse collapses into a
+*rectangular* (N_out x n_kept) matrix that
 
   - encodes the spectrum relocation (shift pass, VkResample.cpp:516-545)
     in its frequency map sigma(j),
-  - skips zeroed bins by simply not having columns for them (the TPU analog
+  - skips zeroed bins by simply not having columns for them (the analog
     of VkFFT's zero-pad guards, vkFFT.h:1277-1470 — zero bins never touched),
   - emits output rows directly in final order (no phase interleave),
   - works uniformly for integer AND fractional factors, and
@@ -19,10 +19,8 @@ imaginary parts of the DC/Nyquist bins exactly as the reference's C2R does
 (see docs/MATH.md §3).
 
 Complex x complex contractions use 3-real-matmul Karatsuba with the
-(Dr+Di) bank precomputed.  Matmul precision is a parameter: HIGHEST for
-strict fp32/f64 parity, HIGH (bf16_3x, ~fp32-accurate) as the fast default,
-DEFAULT (bf16) for the half-precision mode where operand rounding is within
-the mode's tolerance.
+(Dr+Di) bank precomputed.  Matmul precision is a parameter, chosen per
+mode in core/config.py (Precision.matmul_precision).
 """
 from __future__ import annotations
 
@@ -202,7 +200,7 @@ def inv_x_c2c(
 # Iy vanishes except for spectrally unpaired bins (the relocated y-Nyquist,
 # which the shift moves whole — VkResample.cpp:521-525), making it rank<=1;
 # we factor it by SVD and append the r correction rows to the main y matmul.
-# Net cost: TWO large real MXU matmuls for the entire transform chain.
+# Net cost: TWO large real matmuls for the entire transform chain.
 
 
 @lru_cache(maxsize=8)  # f64 staging matrices are tens of MB per geometry
@@ -273,7 +271,7 @@ def _r2c_chain_banks(
         # projection averages the O(h*eps) rounding noise of the complex
         # Df@DY partial sums down by sqrt(h) — single-row extraction at
         # h=4096 leaves ~4e-10 junk in the sample columns, which breaks
-        # the downstream y sample-row identity assert (caught on-chip).
+        # the downstream y sample-row identity assert.
         v_row = (u_col @ Iy) / float(u_col @ u_col)
         # acceptance tolerance with an absolute floor for the same noise —
         # a pure relative bound spuriously rejects the exactly-rank-1
@@ -305,7 +303,7 @@ def c2c_chain_banks(plan, dtype: str) -> dict:
     so each axis composes into ONE complex matrix —
     Xc (w, W) = Dfwd_x @ DXinv_band, Yc (h, H) = Dfwd_y @ DYinv_band.
     The real input makes the x pass 2 real matmuls; y is 3 (Karatsuba):
-    five MXU matmuls for the whole c2c transform chain."""
+    five matmuls for the whole c2c transform chain."""
     h, w, H, W = plan.h, plan.w, plan.H, plan.W
     # x composite
     i_ = np.arange(w)[:, None]
@@ -388,7 +386,12 @@ def r2c_chain(x: jnp.ndarray, banks: dict, precision) -> jnp.ndarray:
     units, via the collapsed two-matmul chain."""
     U = jnp.einsum("...hw,wn->...hn", x, banks["alpha"], precision=precision)
     if "Y1" in banks:
-        tcorr = jnp.einsum("...hw,hr->...rw", x, banks["Y1"], precision=precision)
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
+        tcorr = jnp.einsum(
+            "...hw,hr->...rw", x, banks["Y1"],
+            precision=jax.lax.Precision.HIGHEST,
+        )
         t2 = jnp.einsum("...rw,wn->...rn", tcorr, banks["beta"], precision=precision)
         U = jnp.concatenate([U, t2], axis=-2)
     return jnp.einsum("jm,...jn->...mn", banks["Ymat"], U, precision=precision)
@@ -449,8 +452,8 @@ def r2c_rows_banks(plan, dtype: str) -> dict:
         raise ValueError("y sample-row identity failed")
     # fold the /255 uint8 normalization (VkResample.cpp:1644) into the x
     # banks and split them into bf16 hi+lo terms: uint8 pixel values are
-    # EXACT in bf16, so the x pass runs as TWO plain-bf16 MXU passes with
-    # f32 accumulation — f32-grade accuracy at 2/3 the cost of bf16_3x.
+    # EXACT in bf16, so the x pass runs as TWO plain-bf16 passes with f32
+    # accumulation — f32-grade accuracy from bf16 products.
     an = alpha / 255.0
     a_hi = an.astype("bfloat16" if dtype != "float64" else dtype)
     a_lo = (an - a_hi.astype(np.float64)).astype(
@@ -468,41 +471,22 @@ def r2c_rows_banks(plan, dtype: str) -> dict:
     if r:
         banks["Y1n"] = (Y1 / 255.0).astype(dtype)
         banks["beta"] = beta.astype(dtype)
-    if u == 2 and dtype != "float64" and _ycas_banks_wanted():
-        # transposed y banks for the REJECTED fused y-matmul+CAS experiment
-        # (ops/ycas_pallas.py, 4.1 ms vs 1.4 — docs/STATUS.md); built only
-        # when VKRESAMPLE_YCAS_BANKS=1 (the ycas A/B scripts and tests set
-        # it) so production plans don't upload ~8 MB of dead banks
-        from ..ops.ycas_pallas import RPAD
-
-        r_ = Y1.shape[1]
-        h2 = h + RPAD if r_ else h
-        ytp = np.zeros((h, h2), np.float64)
-        ytp[:, :h] = Ymat_ns[:h].T
-        if r_:
-            ytp[:, h : h + r_] = Ymat_ns[h:].T
-        banks["ycasYT"] = ytp.astype("float32")
-        yt_hi = ytp.astype("bfloat16")
-        yt_lo = (ytp - yt_hi.astype(np.float64)).astype("bfloat16")
-        banks["ycasYT2"] = np.concatenate([yt_hi, yt_lo], axis=1)
     if u == 2 and dtype != "float64":
         # quad-parity column split: output col 2s is EXACT up to a rank-1
         # x-Nyquist correction (alpha[:, 0::2] = I - outer((-1)^i,(-1)^s)/w,
         # verified to 5e-15), so the x matmul only needs the ODD columns —
-        # half the MXU work.  /255 folded, split-bf16 hi|lo like alpha.
+        # half the matmul work.  /255 folded, split-bf16 hi|lo like alpha.
         aodd = alpha[:, 1::2] / 255.0
         ao_hi = aodd.astype("bfloat16")
         ao_lo = (aodd - ao_hi.astype(np.float64)).astype("bfloat16")
         banks["alpha_odd_hi"] = ao_hi
         banks["alpha_odd_lo"] = ao_lo
     if u == 2 and dtype != "float64" and _int8_banks_wanted(plan):
-        # int8 MXU digit banks (r2c_quad int8 route; int8 rides the MXU at
-        # 2x the bf16 rate).  x bank: three rounded base-128 digits of
-        # alpha_odd (the 2^15 headroom keeps every digit in int8; build-time
-        # assert).  y bank: exact shift/mask digits of the 15-bit fixed-
-        # point main rows + a bf16 residual that cancels the bank
-        # quantization.  Same-process A/B: y 0.119 vs 0.292 ms (HIGH),
-        # x 0.162 vs 0.304 ms (stacked bf16 hi|lo) — scripts/int8_mm_ab.py.
+        # int8 digit banks (r2c_quad int8 route; int8 tensor-core
+        # products run at 2x the bf16 rate).  x bank: three rounded
+        # base-128 digits of alpha_odd (the 2^15 headroom keeps every
+        # digit in int8; build-time check).  y bank: see
+        # _int8_y_digit_banks.
         banks.update(_int8_x_digit_banks(aodd, "xq"))
         # full-width digits for the rows route (woven-output callers,
         # w % 128 != 0 geometries) — the y digit banks below are shared
@@ -547,17 +531,13 @@ def _int8_y_digit_banks(Ymain) -> dict:
 
     Default: a 21-bit THREE-digit bank (the x bank's encoding, via
     _int8_x_digit_banks on Ymain/2^14) consumed by 5 int8 matmuls with
-    NO residual pass — the flagship op profile (scripts/
-    profile_flagship.py) showed the round-2 form's two bf16 residual
-    matmuls costing 0.157 ms, more than its four int8 digit passes
-    combined; the 21-bit bank needs no residual (err 0.0097 vs
-    0.0078 u8 LSB, scripts/y3_ab.py).
+    NO residual pass (bank error ~0.01 u8 LSB).
 
-    VKRESAMPLE_Y_DIGITS=2 keeps the round-2 form: exact shift/mask
+    VKRESAMPLE_Y_DIGITS=2 keeps the two-digit form: exact shift/mask
     digits of the 15-bit fixed-point matrix + offset-digit constants +
     a bf16 residual that cancels the bank quantization (see
     _quad_int8_y for both algebras).  Resolved ONCE at bank-build time;
-    the route dispatches on bank content (advisor round-2 pattern)."""
+    the route dispatches on bank content."""
     import os
 
     if os.environ.get("VKRESAMPLE_Y_DIGITS", "3") != "2":
@@ -588,13 +568,6 @@ def _int8_y_digit_banks(Ymain) -> dict:
     }
 
 
-def _ycas_banks_wanted() -> bool:
-    """ycasYT/ycasYT2 feed only the rejected ycas_u2 experiment kernels."""
-    import os
-
-    return bool(os.environ.get("VKRESAMPLE_YCAS_BANKS"))
-
-
 def _int8_banks_wanted(plan) -> bool:
     """Build the int8 digit banks only when the route can activate: the
     half-precision mode with int16 Q2.14 storage (the default) and no
@@ -621,9 +594,9 @@ def r2c_quad_int8_banks(plan, dtype: str = "float32") -> dict:
     Ymat matrices (those would be 0.5-1 GB at 8192x16384).
 
     At 4096x8192 -> 8192x16384 this is ~250 MB of device banks and turns
-    the frame into 3+8 int8 MXU matmuls + quad CAS, vs the mixed-radix
-    phases route's many-stage relayouts (same-process A/B in
-    scripts/big_ab.py).  Detect this set by "xq_d1" present and
+    the frame into 3+8 int8 matmuls + quad CAS, vs the mixed-radix
+    phases route's many-stage relayouts.  Detect this set by "xq_d1"
+    present and
     "Ymat_ns" absent; it requires the int8 route (store codec + not
     HIGHEST)."""
     u = plan.integer_upscale
@@ -656,7 +629,7 @@ def r2c_quad_int8_banks(plan, dtype: str = "float32") -> dict:
 
 
 def _use_int8(banks: dict, store, precision) -> bool:
-    """int8 MXU route applies on the half-precision quad path: the stored
+    """int8 route applies on the half-precision quad path: the stored
     int16 planes make the activation digits exact shift/masks, and the
     mode's tolerance absorbs the ~0.01 u8 LSB the digit banks add.
     Precision HIGHEST (the VKRESAMPLE_MM_PRECISION=highest override)
@@ -665,7 +638,7 @@ def _use_int8(banks: dict, store, precision) -> bool:
     Decided from BANK CONTENT only (plus the precision argument), never
     from env vars: the env knobs are resolved once at bank-build time
     (_int8_banks_wanted), so the built banks and the traced route can
-    never disagree within a process (advisor round-2 finding).  A/B
+    never disagree within a process.  A/B
     harnesses that want the non-int8 arm strip the xq*/yq* keys from the
     bank dict instead of toggling env mid-process."""
     import jax as _jax
@@ -678,7 +651,7 @@ def _use_int8(banks: dict, store, precision) -> bool:
 
 
 def _quad_int8_x(x_raw: jnp.ndarray, banks: dict, key: str = "xq") -> jnp.ndarray:
-    """x matmul as three int8 MXU passes (1.5 bf16-pass equivalents vs
+    """x matmul as three int8 passes (1.5 bf16-pass equivalents vs
     the 2-pass stacked bf16 hi|lo): uint8 pixels shift to exact int8 via
     (x - 128) with a precomputed rank-1 compensation; the bank is three
     rounded base-128 digits (21 bits).  key selects the digit-bank set:
@@ -703,9 +676,9 @@ def _quad_int8_y(Pst: jnp.ndarray, banks: dict) -> jnp.ndarray:
     """Non-sample-row y matmul read straight from the STORED int16 Q2.14
     plane via exact int8 digits.  Dispatches on bank content:
 
-    yq3_* (default): 21-bit 3-digit bank, 5 int8 MXU passes, NO residual
+    yq3_* (default): 21-bit 3-digit bank, 5 int8 passes, NO residual
     — the d3@pl cross product (2^-22 relative) is dropped; total error
-    ~0.01 u8 LSB (scripts/y3_ab.py).
+    ~0.01 u8 LSB.
 
     yq_* (VKRESAMPLE_Y_DIGITS=2): 4 int8 passes + one bf16 residual pass
     that cancels the 15-bit bank quantization.  Digit algebra (both
@@ -784,8 +757,11 @@ def _x_nyq_corr(x_raw, banks: dict, precision, acc=None):
         return None
     if acc is None:
         acc = jnp.float32
+    # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+    # backend has no three-pass bf16 matrix-vector dot)
     tcorr = jnp.einsum(
-        "...hw,hr->...rw", x_raw.astype(acc), banks["Y1n"], precision=precision
+        "...hw,hr->...rw", x_raw.astype(acc), banks["Y1n"],
+        precision=jax.lax.Precision.HIGHEST,
     )
     return jnp.einsum(
         "...rw,wn->...rn", tcorr, banks["beta"], precision=precision
@@ -850,10 +826,9 @@ def r2c_quad(x_raw: jnp.ndarray, banks: dict, precision, store=None, load=None):
     load()ed even-row planes instead of their f32 originals.  That single
     choice removes the f32 planes entirely: with store applied only
     afterwards, P00/P01 feed two consumers (storage + y matmul) and XLA
-    must materialize 50 MB of f32 besides the stored planes — measured
-    0.305 ms vs 1.404 same-process for the whole stage at the flagship
-    shape (scripts/quad_stage2_ab.py); the staging error (2 Q2.14 ticks
-    = 0.03 u8 LSB) is far below the matmul's own operand rounding.
+    must materialize 50 MB of f32 besides the stored planes at the
+    flagship shape; the staging error (2 Q2.14 ticks = 0.03 u8 LSB) is far
+    below the matmul's own operand rounding.
 
     The rank-r y-Nyquist correction rows are contracted separately and
     added (fused into the matmul epilogue) rather than concatenated onto
@@ -875,8 +850,8 @@ def r2c_quad(x_raw: jnp.ndarray, banks: dict, precision, store=None, load=None):
         a_cat = jnp.concatenate(
             [banks["alpha_odd_hi"], banks["alpha_odd_lo"]], axis=0
         )
-        # stacked hi|lo bank: ONE MXU pass with internal accumulation (two
-        # einsums + add measured 0.688 vs 0.305 ms, scripts/quad_stage2_ab.py)
+        # stacked hi|lo bank: ONE matmul with internal accumulation instead
+        # of two einsums and an add over the output
         x_cat = jnp.concatenate([xb, xb], axis=-1)
         P01 = jnp.einsum(
             "...hk,kn->...hn", x_cat, a_cat, preferred_element_type=acc
@@ -889,8 +864,11 @@ def r2c_quad(x_raw: jnp.ndarray, banks: dict, precision, store=None, load=None):
     )
     t2e = t2o = None
     if "Y1n" in banks:
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         tcorr = jnp.einsum(
-            "...hw,hr->...rw", xf, banks["Y1n"], precision=precision
+            "...hw,hr->...rw", xf, banks["Y1n"],
+            precision=jax.lax.Precision.HIGHEST,
         )
         if "beta_e" in banks:
             # big int8-only bank set: beta pre-split by output column

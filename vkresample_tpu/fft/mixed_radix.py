@@ -1,15 +1,14 @@
 """Mixed-radix MXU FFT: Cooley-Tukey decomposition into DFT-matrix
 contractions.
 
-This is the TPU-native re-design of the VkFFT engine core (scheduler
+This is the matmul re-design of the VkFFT engine core (scheduler
 vkFFT.h:4707-5189 + codegen 211-4642).  Where VkFFT generates radix-2/3/4/
-5/7/8 register butterflies with shared-memory shuffles per workgroup, the
-right TPU decomposition groups prime factors into *composite* radixes up to
-128 (core/smooth.plan_factors) so every butterfly stage becomes one batched
-matmul against a constant DFT matrix — contraction dim <= 128, landing
-squarely on the 128x128 MXU.  Twiddle tables are trace-time numpy constants
-(the analog of VkFFT's optional LUT, vkFFT.h:6157-6308, but baked into the
-program), and XLA plays glslang's role compiling the specialized graph.
+5/7/8 register butterflies with shared-memory shuffles per workgroup, this
+decomposition groups prime factors into *composite* radixes up to 128
+(core/smooth.plan_factors) so every butterfly stage becomes one batched
+matmul against a constant DFT matrix (contraction dim <= 128).  Twiddle
+tables are trace-time numpy constants (the analog of VkFFT's optional LUT,
+vkFFT.h:6157-6308, but baked into the program), and XLA plays glslang's role compiling the specialized graph.
 
 Decimation in time, recursive over the factor list.  For N = f*M with input
 index n = f*m + r and output index k = q + M*s:

@@ -1,10 +1,11 @@
-"""MXU-tier upscale core: matmul FFTs + phase-decomposed zero-pad inverse.
+"""Matmul-tier (Engine.MXU) upscale core: matmul FFTs + phase-decomposed
+zero-pad inverse.
 
 This is the hot path for integer upscale factors on 7-smooth even-sized
 frames (the reference's headline configuration).  The whole per-frame
-pipeline is MXU contractions and VPU elementwise ops; the big spectrum is
-never materialized and zero bins are never computed — the TPU-native
-equivalent of VkFFT's frequency zero-padding guards (vkFFT.h:1277-1470).
+pipeline is matrix contractions and elementwise ops; the big spectrum is
+never materialized and zero bins are never computed — the equivalent of
+VkFFT's frequency zero-padding guards (vkFFT.h:1277-1470).
 
 Scaling contract: irfft2_phases/ifft2_phases_c2c return values already in
 CAS units (the u^2 inverse-renormalization of VkResample.cpp:1615 is folded
@@ -35,14 +36,13 @@ def _assemble_pair(F, plan):
 
 
 # largest axis length the dense engine will build a DFT matrix for; bigger
-# plans fall back to the mixed-radix Cooley-Tukey path.  8192 covers
-# 4K -> 8K with <=0.5 GB of banks; the mixed-radix path above this size
-# needs memory staging work (see docs/STATUS.md).
+# plans take the staged / grid tiers (or the mixed-radix path).  8192
+# covers 4K -> 8K with <=0.5 GB of banks.  Unmeasured on the H100: the
+# dense-vs-staged crossover there may sit elsewhere.
 DENSE_MAX = 8192
-# ...except the u=2 half-mode quad route, whose int8 digit banks stay
-# affordable (~250 MB at 8K->16K) and whose 3+8 int8 MXU matmuls beat the
-# mixed-radix phases route's many-stage relayouts — see
-# dense.r2c_quad_int8_banks.
+# ...except the u=2 half-mode int8 quad bank set (VKRESAMPLE_BIG=int8),
+# whose digit banks stay affordable (~250 MB at 8K->16K) — see
+# dense.r2c_quad_int8_banks.  Also unmeasured on the H100.
 DENSE_INT8_MAX = 16384
 
 
@@ -79,7 +79,7 @@ def big_grid_selected(plan) -> bool:
         # mode; VKRESAMPLE_FRAC=grid opts the grid form in for A/B (the
         # dense alternative materializes the full H x W complex
         # spectrum, so the grid may win here even below the cap —
-        # unverified on-chip, hence opt-in)
+        # unmeasured, hence opt-in)
         return (
             os.environ.get("VKRESAMPLE_FRAC") == "grid"
             and plan.integer_upscale is None
@@ -139,7 +139,7 @@ def make_dense_banks(
     per axis, O(n*n1) bank bytes, any composite size) for BOTH plane
     consumers (planes=True, the PNG path) and woven callers (the quad
     planes + u16-packed column weave, ops/weave.py).  VKRESAMPLE_BIG=
-    int8 falls back to the round-2 int8 dense quad tier (O(n^2) banks,
+    int8 falls back to the int8 dense quad tier (O(n^2) banks,
     planes-only, capped at DENSE_INT8_MAX) for A/B."""
     import functools
     import os
@@ -149,9 +149,9 @@ def make_dense_banks(
     from . import dense, staged
 
     def _cached(tag, build, *args, built_dtype=None):
-        # big-geometry bank staging is minutes of host numpy; the disk
-        # cache (core/bankcache.py) makes the second CLI run at the same
-        # geometry skip it (round-2 verdict item 8).  built_dtype keys
+        # big-geometry bank staging is seconds to minutes of host numpy;
+        # the disk cache (core/bankcache.py) makes the second CLI run at
+        # the same geometry skip it.  built_dtype keys
         # entries by the dtype the builder ACTUALLY produces (the staged
         # builders ignore the caller dtype), so one bank set never caches
         # under several keys.
@@ -327,8 +327,8 @@ def _precas_mixed_radix(x: jnp.ndarray, plan: UpscalePlan) -> jnp.ndarray:
         )
     if mode == "big" and max(plan.h, plan.w, plan.H, plan.W) > DENSE_MAX:
         # the big-spectrum mode materializes the full H x W complex
-        # spectrum and is recorded as non-surviving beyond the dense cap
-        # (docs/STATUS.md); every surviving big fractional geometry is
+        # spectrum and does not fit beyond the dense cap; every big
+        # fractional geometry with a route is
         # claimed by the staged grid tier upstream (H/h == W/w == p/q
         # with q | dims and the C-float band edges matching the rational
         # keep set, fft/staged.py frac_params) — reaching here means the
@@ -352,7 +352,7 @@ def _precas_mixed_radix(x: jnp.ndarray, plan: UpscalePlan) -> jnp.ndarray:
             out = irfft2_phases(
                 F, plan.h, plan.w, plan.integer_upscale, plan.kept_hi_x > 0
             )
-        else:  # fractional factor: big spectrum materialized, MXU FFTs
+        else:  # fractional factor: big spectrum materialized, matmul FFTs
             G = _assemble_pair(F, plan)
             out = u2 * irfft2_big(G, plan.H, plan.W)
         return out

@@ -1,7 +1,7 @@
 """R2C/C2R 2D FFT built on the mixed-radix MXU engine, plus the
 phase-decomposed zero-padding-aware inverse.
 
-Forward (real image -> half spectrum), the TPU re-design of VkFFT's R2C
+Forward (real image -> half spectrum), the re-design of VkFFT's R2C
 path: the reference packs TWO real rows as re/im of one complex row, FFTs
 once, and Hermitian-splits (vkFFT.h:1945-2058 read, 4274-4377 write,
 split math 4319-4329).  We do the same row-pair pack — it halves the
@@ -9,8 +9,8 @@ x-pass work — then a plain complex y-FFT on the half spectrum.
 
 Inverse: the reference never touches the zero band — its zero-pad guards
 skip zeroed bins at read and elide all-zero sequences entirely
-(vkFFT.h:1277-1470, 1536-1576; flag distribution 7222-7259).  The TPU-
-native equivalent for an integer upscale factor u is *phase decomposition*:
+(vkFFT.h:1277-1470, 1536-1576; flag distribution 7222-7259).  The
+equivalent here for an integer upscale factor u is *phase decomposition*:
 with N = u*n and only n source bins nonzero,
 
     y[u*t + r] = (1/u) * ifft_n( X ⊙ w_r )[t],   w_r[k] = e^{2πi σ(k) r/N}
@@ -179,8 +179,8 @@ def irfft2_phase_planes(
     out[u*ty+ry, u*tx+rx] = planes[ry][rx][ty, tx], pre-scaled by u^2.
 
     The phase decomposition IS the parity decomposition: for u=2 these are
-    exactly the quad-parity pre-CAS planes the fused CAS kernel consumes
-    (ops/cas_pallas.cas_parity4_planes_u2) — so at sizes beyond the dense
+    exactly the quad-parity pre-CAS planes the parity CAS consumes
+    (ops/cas.py cas_parity_planes) — so at sizes beyond the dense
     banks the pipeline never materializes the woven image either.
     """
     Fr, Fi = F
@@ -220,8 +220,8 @@ def irfft2_phases(
 
     # interleave phases via strided scatters: out[u*ty+ry, u*tx+rx] =
     # rows[ry][rx][ty, tx].  (A stack/moveaxis/reshape formulation creates
-    # intermediates with minor dims of u, which TPU layouts pad to 128
-    # lanes — a 128/u x memory blowup at scale.)
+    # intermediates with minor dims of u, which tiled device layouts can
+    # pad to 128 elements — a 128/u x memory blowup at scale.)
     batch = rows[0][0].shape[:-2]
     out = jnp.zeros(batch + (u * h, u * w), rows[0][0].dtype)
     for ry in range(u):

@@ -12,10 +12,10 @@ The u=2 zero-band upscale's two hot contractions are exactly CIRCULANT:
     same structure along the lane axis (no x-Nyquist column on the u=2
     band, so it is exactly band-limited hence exactly circulant).
 
-So instead of one dense O(n^2) MXU matmul per axis (the dense tier, which
+So instead of one dense O(n^2) matmul per axis (the dense tier, which
 needs O(n^2) bank bytes and caps at DENSE_INT8_MAX), each axis is a
 length-n circular convolution evaluated by a two-level Cooley-Tukey
-factorization n = n1*n2 as THREE batched small matmuls — the TPU-native
+factorization n = n1*n2 as THREE batched small matmuls — the matmul
 equivalent of VkFFT's multi-upload 4-step FFT (vkFFT.h:2205-2389: the
 inter-pass twiddles), with the twiddles AND the kernel's eigenvalues
 folded into the middle stage's per-k2 banks:
@@ -30,8 +30,8 @@ folded into the middle stage's per-k2 banks:
 
 FLOPs drop O(n) -> O(n1 + 2*n2) per element and bank bytes O(n^2) ->
 O(n*n1): at 4096x8192 -> 8192x16384 the y stage goes from a 4096^2 int8
-digit matmul (33.6 ms, ~250 MB of banks, ~245 s of host staging) to three
-f32 matmuls with ~4 MB of banks built in milliseconds — and the 16384 cap
+digit matmul (~250 MB of banks, minutes of host staging) to three f32
+matmuls with ~4 MB of banks built in milliseconds — and the 16384 cap
 disappears (any composite n with a factor ~128 works, covering every
 7-smooth size the scheduler accepts).
 
@@ -182,21 +182,17 @@ def split_factors(n: int, prefer: int = None, multiple_of: int = 1):
     closest to `prefer` (ties toward the larger), n2 = n // n1.  Returns
     None when no usable split exists (prime or near-prime n).
 
-    Default prefer is sqrt(n) — the BALANCED split.  The on-chip sweep
-    (scripts/staged_split_ab.py, 4096/8192 at v5e) measured it 12-23%
-    faster than the earlier n1=128 preference: S1/S3 contract only
-    K = n2 / 2*(n2/2+1), so a large n1 starves the 128-deep MXU on two
-    of the three stages while also RAISING total FLOPs (S2 is
-    n1-linear); sqrt(n) balances K across stages (y: 5.94 vs 7.68 ms,
-    x: 5.32 vs 6.07 at the 8K->16K geometry).
+    Default prefer is sqrt(n) — the BALANCED split: S1/S3 contract only
+    K = n2 / 2*(n2/2+1), so a large n1 leaves those two stages with a
+    shallow contraction while also RAISING total FLOPs (S2 is
+    n1-linear); sqrt(n) balances K across stages.  Which split is
+    fastest on the H100 is unmeasured.
 
     multiple_of: constrain n1 to multiples of this (the fractional
     tier's stride-q decimation lives on the t1' axis, so it needs
     q | n1 — see conv_banks' decimate)."""
     if prefer is None:
-        # sqrt(n) capped at 64: n1=64 measured best at every big size
-        # (4096: 5.94 vs 6.04@32; 8192: 5.32 vs 6.07@128; 16384 lanes:
-        # 6.57 vs 6.70@128 — scripts/staged_split_ab.py, split16k_ab.py)
+        # sqrt(n) capped at 64
         prefer = max(8, min(64, int(round(float(np.sqrt(n))))))
     best = None
     for d in range(1, int(np.sqrt(n)) + 1):
@@ -217,26 +213,20 @@ def split_factors(n: int, prefer: int = None, multiple_of: int = 1):
 def x_split_prefer(decimate: int = 1, n: int = None) -> int:
     """Preferred middle factor n1 for the LANES (x-axis) staged convs.
 
-    The balanced n1<=64 split wins the ISOLATED conv A/B
-    (scripts/staged_split_ab.py), but in the COMPOSED program the x
-    conv's S3 output view (..., n2, n1) with n1=64 leaves every 128-lane
-    vreg half-used, and XLA pays a full relayout copy+reshape at the
-    x->y boundary (copy.69 + reshape.151 = 3.75 ms of the 30.8 ms
-    8K->16K pipeline, round-4 HLO attribution).  n1=128 makes BOTH the
-    input view (..., n2, 128) and the natural "...ed" output lane-exact,
-    so the flatten is sublane-only and the relayout disappears.
+    n1=128 makes BOTH the input view (..., n2, 128) and the natural
+    "...ed" S3 output view of the lanes conv 128-element-exact in its
+    minor dim, so the flatten at the x->y boundary needs no relayout
+    copy in a layout tiled by 128 along the minor dim.
     Decimated (fractional) banks emit nd = n1/q output columns, so the
     lane-exact preference scales to n1 = 128*q: the input view's minor
     dim stays a multiple of 128 and the output's nd lands exactly on
     128.
 
     When the axis length `n` is given, n1 additionally doubles (staying
-    a divisor) until n2 = n/n1 <= 64: at w=16384 the n1=128 split's
-    n2=128 re-introduces the boundary relayouts (two materialized f32
-    dequants + an s16 encode copy, ~7.3 ms of the 16K->32K program) and
-    n1=256 measures 108.4 vs 112.1 ms (scripts/split16k_ab.py,
-    min-over-pass2+, maxdiff 1).  VKRESAMPLE_XSPLIT overrides the base
-    (pre-q) preference for A/B (scripts/xsplit_ab.py).
+    a divisor) until n2 = n/n1 <= 64 (at w=16384 the n1=128 split's
+    n2=128 re-introduces boundary relayouts).  VKRESAMPLE_XSPLIT
+    overrides the base (pre-q) preference for A/B.  The H100's best
+    split is unmeasured.
 
     Widths 128*q does NOT divide (e.g. 8640 = 2^6*3^3*5 — no divisor is
     a multiple of 128): no lane-exact split exists, so pick the divisor
@@ -262,7 +252,7 @@ def x_split_prefer(decimate: int = 1, n: int = None) -> int:
             while n % (2 * n1) == 0 and n // n1 > 64:
                 n1 *= 2
         else:
-            # restrict to the MXU-efficient window (S2's FLOPs are
+            # restrict to the matmul-efficient window (S2's FLOPs are
             # n1-linear per element and its banks O(n1^2) bytes, so huge
             # divisors minimize relative padding while losing outright
             # on work); outside the window fall back to split_factors'
@@ -288,8 +278,7 @@ def y_split_prefer():
     None keeps split_factors' balanced default (sqrt capped 64, the
     measured best at 4K/8K heights).  VKRESAMPLE_YSPLIT overrides for
     A/B at geometries whose row count makes n2 large (h=8192 gives
-    n2=128 at the default; scripts/split16k_ab.py probes whether the
-    16K tier's extra boundary relayouts follow the split)."""
+    n2=128 at the default)."""
     import os
 
     v = os.environ.get("VKRESAMPLE_YSPLIT")
@@ -385,8 +374,8 @@ def conv_banks(
 
 def _intermediate_mode(b1):
     """VKRESAMPLE_STAGED_INTERMEDIATE knob for the inter-stage spectral
-    buffers (the convs are ~60-70% HBM-bound at big geometries, so
-    halving the inter-stage bytes is the remaining traffic lever):
+    buffers (halving the inter-stage bytes is the traffic lever where
+    the convs are memory-bound):
 
     'bf16'      — bf16 intermediates AND single-pass bf16 stage matmuls
                   with f32 accumulation.  REJECTED for default use:
@@ -395,8 +384,8 @@ def _intermediate_mode(b1):
                   2^-9 operand roundings over K~128 contractions is ~1%,
                   inherent to single-pass bf16 at these sizes.
     'bf16store' — bf16 ONLY for the materialized intermediates; the
-                  stage matmuls keep the caller's precision (HIGH =
-                  bf16x3) on the upcast values.  Error is two storage
+                  stage matmuls keep the caller's precision on the
+                  upcast values.  Error is two storage
                   roundings per element instead of a K-step random walk.
                   ALSO REJECTED for default use: measured ~2.2-2.4 u8
                   LSB (140 Q2.14 units at 96x384, 154 at 256x1024) vs
@@ -409,25 +398,17 @@ def _intermediate_mode(b1):
                   input max): ABSOLUTE resolution, so the error does
                   not follow the DC bins' magnitude the way bf16's
                   relative rounding does — measured 0.33-0.55 u8 LSB on
-                  CPU at small sizes.  REJECTED TWICE on speed: round-3
-                  layout 33.4 vs 23.0 ms composed at 8K→16K
-                  (scripts/i16mid_ab.py); round-5 re-measure at the
-                  fused-epilogue lane-exact layout 30.0-30.2 vs
-                  25.1-25.4 (scripts/i16mid_ab2.py, 3 interleaved
-                  passes).  The per-boundary split (VKRESAMPLE_I16_
-                  STAGES "0"/"1"/"01") attributes the entire loss to
-                  the S2→S3 boundary: XLA fuses S2→S3, so no spectral
-                  intermediate exists there to shrink — the codec
-                  CREATES one; and the S1→S2 boundary that does
-                  materialize is not traffic-bound (halving its bytes
-                  is a wash, 16.0-16.9 vs 16.2-16.3 transform).  s1
-                  also drifts to ~1.5 u8 LSB (95-99 Q2.14 units).  See
-                  docs/STATUS.md round 5.
+                  CPU at small sizes.  Not the default: where XLA fuses
+                  S2→S3, no spectral intermediate exists there to
+                  shrink and the codec CREATES one; the per-boundary
+                  split (VKRESAMPLE_I16_STAGES "0"/"1"/"01") selects
+                  which boundaries store int16.  Its speed on the H100
+                  is unmeasured.
 
     'bf16c'     — CENTERED bf16: subtract the per-column (rows conv) /
                   per-row (lanes conv) mean before the stages, run the
                   stages on bf16 operands (banks cast to bf16, single
-                  MXU pass, f32 accumulation), add the mean back after
+                  bf16 pass, f32 accumulation), add the mean back after
                   S3.  Every staged kernel has exact unit DC gain
                   (sum_d c[d] = g[0] = keep[0] = 1), so the add-back is
                   exact — and the centering removes the DC magnitude
@@ -466,7 +447,7 @@ def _i16_stages():
 
 def conv_apply_rows(
     x, banks: dict, prefix: str, precision=None, dc_add=None, in_max=None,
-    load=None, emit4d=False, epilogue=None,
+    load=None, epilogue=None,
 ):
     """Staged circular convolution over axis -2 of a REAL array
     (..., n, L) -> (..., n, L).
@@ -483,8 +464,7 @@ def conv_apply_rows(
     reshape.  load(reshape(x)) == reshape(load(x)) bit-exactly
     (elementwise op), but the deferred order halves the relayout bytes
     when the reshape materializes and lets the dequant fuse into S1's
-    operand read — the early-load form paid a 1.22 ms full-size
-    dequant pass at 8K->16K (reshape.60, round-4 HLO attribution).
+    operand read instead of a separate full-size dequant pass.
 
     epilogue: optional elementwise function applied to the output in
     its pre-flatten 4D view (..., e, d, L), e of size n2 (row-group)
@@ -493,31 +473,11 @@ def conv_apply_rows(
     reshaped to (n2, nd, 1) by the caller.  Fusing row-broadcast math
     (and a storage encode) here instead of post-flatten lets it ride
     S3's emission BEFORE the sublane-transpose layout copy the flatten
-    pays, so the copy moves to the (narrow) epilogue output — the c2c
-    magnitude pass previously paid 2.45 ms of materialized f32
-    reshapes + a 2.78 ms separate encode pass at 8K (round-4 HLO
-    attribution of the bigc2c tier).
-
-    emit4d: return the TRANSPOSED-ROW 4D form (..., t1', t2', L) =
-    (nd, n2, L) instead of the flattened (..., n, L).  Output row
-    s = t1' + n1*t2' lives at [d, e] — so the natural nd-row band
-    [e*nd, (e+1)*nd) is exactly the contiguous e-slice [:, e, :].
-    This logical shape's canonical layout IS the S3 dot's natural
-    emission order (MXU M dim = e on the sublanes): requesting the
-    flattened natural order instead forces a full sublane-transpose
-    copy of each stored plane (copy.66/52 = 1.2 ms at 8K->16K,
-    round-4 HLO attribution).  Consumers that read row bands (the
-    slot CAS kernels) take the e-slices directly."""
+    pays, so the copy moves to the (narrow) epilogue output instead of
+    materialized f32 reshapes plus a separate encode pass (the c2c
+    magnitude pass uses this)."""
     if precision is None:
         precision = jax.lax.Precision.HIGHEST
-    if emit4d and epilogue is not None:
-        # the epilogue contract is the (..., e, d, L) view; emit4d's S3
-        # emits (..., d, e, L) — no caller combines them, and doing so
-        # would silently hand the epilogue transposed row axes
-        raise ValueError(
-            "conv_apply_rows: epilogue and emit4d are mutually exclusive "
-            "(the epilogue is defined on the (..., e, d, L) view)"
-        )
     b1 = banks[prefix + "b1"]
     mb = banks[prefix + "m"]
     b3 = banks[prefix + "b3"]
@@ -583,34 +543,25 @@ def conv_apply_rows(
         else:
             dc_post = dc_add
     y = _store(y, 1)
-    # S3: contract (re/im, k2) -> real output; "...edL" flattened, or
-    # the transposed-row "...deL" 4D form (see emit4d in the docstring)
-    if emit4d:
-        y = jnp.einsum("kce,...kcdL->...deL", b3, y, precision=prec23, **kw)
-    else:
-        y = jnp.einsum("kce,...kcdL->...edL", b3, y, precision=prec23, **kw)
+    # S3: contract (re/im, k2) -> real output in the (..., e, d, L) view
+    y = jnp.einsum("kce,...kcdL->...edL", b3, y, precision=prec23, **kw)
     if dc_post is not None:
         # b3[0, 0, e] == 1/n2 for EVERY e, so the DC-bin injection is
         # exactly a broadcast add of dc_add[d, L] over the t2' groups —
         # emit it as S3's fused elementwise epilogue instead of a
         # scatter-add on the spectral intermediate: the .at[].add form
-        # materializes a full layout-permuted copy of each S2 output
-        # (2x 1.24 ms at 8K->16K, copy.256/257 in the round-4 HLO
-        # attribution).  The i16 branch above keeps the in-spectrum
+        # materializes a full layout-permuted copy of each S2 output.
+        # The i16 branch above keeps the in-spectrum
         # injection so the narrow store absorbs the term.
-        if emit4d:
-            y = y + dc_post[..., :, None, :]
-        else:
-            y = y + dc_post[..., None, :, :]
-    if cm is not None and (emit4d or epilogue is not None):
+        y = y + dc_post[..., None, :, :]
+    if cm is not None and epilogue is not None:
         # exact DC add-back: conv(x) = conv(x - cm) + cm * sum(kernel)
         # (in the 4D view so the epilogue sees the finished value)
         y = y + cm[..., None, :, :] * banks[prefix + "dc0"]
         cm = None
     if epilogue is not None:
         y = epilogue(y)
-    if not emit4d:
-        y = y.reshape(lead + (n2 * nd, L))
+    y = y.reshape(lead + (n2 * nd, L))
     if cm is not None:
         y = y + cm * banks[prefix + "dc0"]
     return y
@@ -618,25 +569,9 @@ def conv_apply_rows(
 
 def conv_apply_lanes(
     x, banks: dict, prefix: str, precision=None, in_max=None,
-    factored=False,
 ):
     """Staged circular convolution over axis -1 of a REAL array
-    (..., n) -> (..., n).
-
-    factored=True emits S3 in its NATURAL matmul order "...de" and
-    flattens, so output memory column j = d*n2 + e holds conv output
-    s = e*n1 + d (the FACTORED/scrambled column layout) — downstream row
-    convs treat columns as a pure batch dim.  Requires decimate=1 banks
-    (nd == n1).  NOTE: the factored ROUTE was rejected in round 4 — the
-    production transform loses 25.5 vs 22.3 ms at 8K and the factored
-    CAS geometry was pruned (scripts/fac_decide_ab.py, docs/STATUS.md);
-    this stays as a library capability (pure output permutation).
-    RE-ENTRY CONDITION: none for the route — the loss is inherent to
-    the scrambled CAS neighborhoods (west/east = ±n2 memory columns),
-    not to a missing compiler feature.  The kwarg remains only because
-    it is a zero-maintenance output permutation pinned bit-exact by
-    tests/test_staged_factored.py; remove it if that test ever becomes
-    a burden."""
+    (..., n) -> (..., n)."""
     if precision is None:
         precision = jax.lax.Precision.HIGHEST
     b1 = banks[prefix + "b1"]
@@ -676,42 +611,12 @@ def conv_apply_lanes(
     y = _store(y, 0)
     y = jnp.einsum("cjbkd,...jcb->...kcd", mb, y, precision=prec23, **kw)
     y = _store(y, 1)
-    if factored:
-        if nd != n1:
-            raise ValueError("factored layout requires decimate=1 banks")
-        y = jnp.einsum("kce,...kcd->...de", b3, y, precision=prec23, **kw)
-    else:
-        y = jnp.einsum("kce,...kcd->...ed", b3, y, precision=prec23, **kw)
+    y = jnp.einsum("kce,...kcd->...ed", b3, y, precision=prec23, **kw)
     y = y.reshape(lead + (n2 * nd,))
     if cm is not None:
         # exact DC add-back: conv(x) = conv(x - cm) + cm * sum(kernel)
         y = y + cm * banks[prefix + "dc0"]
     return y
-
-
-def scramble_cols(a, n1: int, n2: int):
-    """Natural -> factored column order along axis -1 (length n1*n2):
-    out[..., d*n2 + e] = a[..., e*n1 + d].  The inverse of defactor_cols.
-    Works on jnp or np arrays (reshape/swapaxes only)."""
-    lead = a.shape[:-1]
-    return (
-        a.reshape(lead + (n2, n1)).swapaxes(-1, -2).reshape(lead + (n1 * n2,))
-    )
-
-
-def defactor_cols(a, n1: int, n2: int):
-    """Factored -> natural column order along axis -1 (length n1*n2):
-    out[..., e*n1 + d] = a[..., d*n2 + e]."""
-    lead = a.shape[:-1]
-    return (
-        a.reshape(lead + (n1, n2)).swapaxes(-1, -2).reshape(lead + (n1 * n2,))
-    )
-
-
-def factored_split(banks: dict, prefix: str = "stx_"):
-    """(n1, n2) of the staged x-conv column factorization — the scramble
-    geometry of the factored layout."""
-    return banks[prefix + "m"].shape[2], banks[prefix + "b1"].shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -775,26 +680,27 @@ def r2c_quad_staged_banks(plan, dtype: str = "float32") -> dict:
 
 
 def staged_precision():
-    """Matmul precision for the staged stages: HIGH (bf16x3) by default —
-    the on-chip gate at 8K->16K holds oracle maxdiff 1 at both HIGH and
-    HIGHEST while HIGH is ~5% faster e2e (34.5 vs 36.2 ms,
-    scripts/staged_prec_gate.py; the i16 storage codec dominates the
-    error budget, bf16x3's ~1e-6 relative never surfaces at u8 scale).
-    VKRESAMPLE_STAGED_PRECISION=highest restores the 6-pass form."""
+    """Matmul precision for the three staged stages (and the c2c,
+    fractional and u >= 3 grids and the sp pencil bodies built on them):
+    the three-pass bf16 algorithm (BF16_BF16_F32_X3).  On an NVIDIA H100
+    (700 W) it holds <= 1 uint8 LSB against the fp64 oracle at 8K->16K,
+    at u=3 -> 6144x12288 and at the c2c flagship, where a single TF32
+    pass (Precision.HIGH on the GPU) reaches maxdiff 3 / 1 / 2; it is the
+    fastest of the candidates that hold the bound (PERF.md, Findings).
+    VKRESAMPLE_STAGED_PRECISION=highest selects full f32 products."""
     import os
 
     v = os.environ.get("VKRESAMPLE_STAGED_PRECISION", "").lower()
     return (
         jax.lax.Precision.HIGHEST
         if v == "highest"
-        else jax.lax.Precision.HIGH
+        else jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
     )
 
 
 def _quad_variant():
-    """Composition variant for the staged quad transform (trace-time env;
-    A/B'd by scripts/staged_fix_ab.py against the ~10 ms composition gap
-    the staged_gap.py bisect localized to the second y conv):
+    """Composition variant for the staged quad transform (trace-time env,
+    for A/B of how the two y convs and the colsum compose):
       ""        — two independent y convs (baseline)
       "batchy"  — ONE y conv over the two planes stacked on a leading dim
       "f32y"    — y convs read the un-quantized f32 planes (skip the
@@ -802,11 +708,8 @@ def _quad_variant():
       "barrier" — optimization_barrier between the stored planes and the
                   y convs (pins fusion boundaries)
       "qbar"    — optimization_barrier around ONLY the x-Nyquist colsum q
-                  (the gap3 bisect pinned the non-additivity to the
-                  x conv + q-reduction pair in one program)
-      "qint"    — no-op (the int32 q is the DEFAULT since the fix2 A/B:
-                  pipeline 46.3 -> 35.5 ms at 8K->16K); kept for scripts
-      "qf32"    — restore the f32 colsum q (the de-additivizing form)
+      "qint"    — no-op (the int32 q is the default)
+      "qf32"    — the f32 colsum q instead of the int32 one
     Variants combine comma-separated (e.g. "batchy,f32y")."""
     import os
 
@@ -835,58 +738,32 @@ def ynyq_dc_or_post(yc, n1: int, nd: int, qd: int, h_out: int, acc):
     return None, yc * rsign
 
 
-def r2c_quad_staged(
-    x_raw, banks: dict, precision, store=None, load=None, factored=False,
-    rows4d=False,
-):
+def r2c_quad_staged(x_raw, banks: dict, precision, store=None, load=None):
     """Quad-parity u=2 transform on staged circulant convolutions.
     Same contract as dense.r2c_quad: x_raw holds RAW uint8 pixel values
     (..., C, h, w); returns the four pre-CAS parity planes (stored when a
     codec is given).  See dense.r2c_quad for the parity algebra; only the
-    two hot matmuls are replaced by staged convolutions.
-
-    factored=True returns the planes in the FACTORED column layout
-    (memory col j = d*n2 + e holds plane col e*n1 + d, (n1, n2) =
-    factored_split(banks)): the x conv's S3 writes its natural matmul
-    order (no relayout), the y convs are order-blind, P00 is a scrambled
-    u8 view + scrambled signs, and the tiny correction rows scramble
-    post-hoc.  Consumers decode via defactor_cols (the factored CAS
-    geometry was rejected + pruned in round 4: fac_split now decodes to
-    the natural kernel — scripts/fac_decide_ab.py, docs/STATUS.md).
-
-    rows4d=True asks for P10/P11 in conv_apply_rows' transposed-row 4D
-    form (..., nd, n2, L) — the S3 dot's copy-free emission order; the
-    slot CAS kernels consume the e-slices as natural row bands.  Only
-    honored when the composition allows (even y n1 so the correction
-    rides the DC bin, no batchy stacking, not factored); callers detect
-    by ndim (P10.ndim == P00.ndim + 1)."""
+    two hot matmuls are replaced by staged convolutions."""
     variant = _quad_variant()
     w = x_raw.shape[-1]
     h = x_raw.shape[-2]
     acc = banks["stx_b1"].dtype  # f32, or f64 for the DOUBLE mode
     xf = x_raw.astype(acc)
-    n1x, n2x = factored_split(banks) if factored else (None, None)
     # P01 = x (x) psi_o: staged conv along lanes (/255 folded in).
     # in_max feeds only the experimental i16 intermediate codec: the
     # lanes input is RAW u8 (<= 255).
-    P01 = conv_apply_lanes(
-        xf, banks, "stx_", precision, in_max=255.0, factored=factored
-    )
+    P01 = conv_apply_lanes(xf, banks, "stx_", precision, in_max=255.0)
     # P00 = x/255 - rank-1 x-Nyquist correction (exact samples).  The
-    # colsum q runs in int32 on the RAW u8 image (exact: w*255 << 2^31):
-    # an f32 colsum of xf de-additivizes the composed program by ~10 ms
-    # at 8K->16K — XLA entangles the full-image f32 reduction with the
-    # x conv's consumption of the same xf operand (scripts/staged_gap3.py
-    # bisect + staged_fix_ab.py: pipeline 46.3 -> 35.5).  "qf32" restores
-    # the old form for A/B.
+    # colsum q runs in int32 on the RAW u8 image (exact: w*255 << 2^31),
+    # so the full-image reduction does not share the f32 xf operand with
+    # the x conv (XLA can entangle the two in one fusion).  "qf32"
+    # selects the f32 form for A/B.
     signs_np = (-1.0) ** np.arange(w)
     signs = jnp.asarray(signs_np, acc)
     if x_raw.dtype == jnp.uint8 and "qf32" not in variant:
         isign = jnp.asarray(
             np.where(np.arange(w) % 2 == 0, 1, -1).astype(np.int32)
         )
-        # the colsum is order-independent: always reduce the NATURAL
-        # layout (one operand, no scrambled copy of the full image)
         q = jnp.sum(
             x_raw.astype(jnp.int32) * isign, axis=-1, keepdims=True
         ).astype(acc)
@@ -894,23 +771,17 @@ def r2c_quad_staged(
         q = jnp.sum(xf * signs, axis=-1, keepdims=True)
     if "qbar" in variant:
         q = jax.lax.optimization_barrier(q)
-    if factored:
-        # exact-samples plane in the factored order: scramble the RAW u8
-        # image (the one relayout of the factored arm — u8 bytes, and
-        # H2D linearization makes it free for host-fed callers) and the
-        # static signs vector
-        xs = scramble_cols(x_raw, n1x, n2x).astype(acc)
-        signs_p = jnp.asarray(scramble_cols(signs_np, n1x, n2x), acc)
-    else:
-        xs, signs_p = xf, signs
-    P00 = xs * jnp.asarray(1.0 / 255.0, acc) - (signs_p * q) * jnp.asarray(
+    P00 = xf * jnp.asarray(1.0 / 255.0, acc) - (signs * q) * jnp.asarray(
         1.0 / (255.0 * w), acc
     )
     # rank-1 y-Nyquist correction rows (odd output rows only)
     t2e = t2o = None
     if "st_y1n" in banks:
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         tcorr = jnp.einsum(
-            "...hw,hr->...rw", xf, banks["st_y1n"], precision=precision
+            "...hw,hr->...rw", xf, banks["st_y1n"],
+            precision=jax.lax.Precision.HIGHEST,
         )
         if "qbar" in variant:
             # same decoupling as q: tcorr is the other full-image
@@ -918,12 +789,6 @@ def r2c_quad_staged(
             tcorr = jax.lax.optimization_barrier(tcorr)
         t2o = conv_apply_lanes(tcorr, banks, "stbo_", precision)
         t2e = conv_apply_lanes(tcorr, banks, "stbe_", precision)
-        if factored:
-            # the correction convs use their own (prefer=16) splits, so
-            # their natural outputs scramble post-hoc — (C, 1, w) rows,
-            # negligible next to the full-size planes
-            t2o = scramble_cols(t2o, n1x, n2x)
-            t2e = scramble_cols(t2e, n1x, n2x)
     yload = None
     if store is None:
         P00s, P01s = P00, P01
@@ -936,7 +801,7 @@ def r2c_quad_staged(
             P00m, P01m = P00, P01
         elif "dqearly" in variant or "batchy" in variant:
             # early decode: the y convs read full-size dequantized
-            # planes ("dqearly" restores the pre-round-4 order for A/B;
+            # planes ("dqearly" decodes before the conv, for A/B;
             # "batchy" stacks the planes before the conv)
             P00m, P01m = load(P00s), load(P01s)
         else:
@@ -971,16 +836,13 @@ def r2c_quad_staged(
         )
         P10, P11 = Pyt[0], Pyt[1]
     else:
-        # transposed-row 4D emission: only when the odd-n1 post path is
-        # off (its row signs address flattened rows) and not factored
-        emit4d = rows4d and post is None and not factored
         P10 = conv_apply_rows(
             P00m, banks, "sty_", precision, dc_add=dc_e, in_max=2.0,
-            load=yload, emit4d=emit4d,
+            load=yload,
         )
         P11 = conv_apply_rows(
             P01m, banks, "sty_", precision, dc_add=dc_o, in_max=2.0,
-            load=yload, emit4d=emit4d,
+            load=yload,
         )
     if post is not None:
         P10 = P10 + post * t2e
@@ -1209,8 +1071,11 @@ def r2c_grid_staged(x_raw, banks: dict, precision, store=None, load=None):
     # rank-1 y-Nyquist correction: one colsum, one chi conv per x phase
     tc = None
     if "sg_y1n" in banks:
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         tcorr = jnp.einsum(
-            "...hw,hr->...rw", xf, banks["sg_y1n"], precision=precision
+            "...hw,hr->...rw", xf, banks["sg_y1n"],
+            precision=jax.lax.Precision.HIGHEST,
         )
         tc = [
             conv_apply_lanes(tcorr, banks, f"sgb{rx}_", precision)
@@ -1422,8 +1287,7 @@ def c2c_grid_staged(x_raw, banks: dict, precision, store=None, load=None):
     # row-split view (the dqlate deferral — see conv_apply_rows' load)
     # and the ry=0 magnitudes use the raw f32 values (raws), so neither
     # a full-size dequant pass nor a decode->re-encode roundtrip ever
-    # materializes (reshape.72 + part of clamp_convert in the round-4
-    # bigc2c HLO attribution)
+    # materializes
     Pcols = A if store is None else [store(a) for a in A]
     sYo = jnp.asarray((-1.0) ** (qd * np.arange(h // qd)), acc)[:, None]
     sXo = jnp.asarray((-1.0) ** (qd * np.arange(w // qd)), acc)
@@ -1462,9 +1326,8 @@ def c2c_planes_from_pencils(
     the Sn correction are row-broadcasts, exactly representable with
     sYo/Wv reshaped to the (n2, nd) row split — so the sqrt AND the
     storage encode ride S3's emission, and the flatten's sublane-
-    transpose copy moves to the narrow stored dtype (2.45 ms of f32
-    reshapes + a 2.78 ms encode pass at 8K, round-4 bigc2c HLO
-    attribution)."""
+    transpose copy moves to the narrow stored dtype instead of f32
+    reshapes plus a separate encode pass."""
     import os
 
     u = c2c_grid_u(banks)

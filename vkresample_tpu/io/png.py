@@ -195,6 +195,31 @@ def native_available() -> bool:
     return _load_native() is not None
 
 
+_NO_CODEC = (
+    "no PNG codec: the native libpng codec did not build (`make -C "
+    "vkresample_tpu/native` needs the libpng and zlib headers) and PIL "
+    "is not installed"
+)
+
+
+def _pil():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(_NO_CODEC) from e
+    return Image
+
+
+def codec_name() -> str:
+    """The PNG codec this process uses: "native libpng" or "PIL".
+    Raises RuntimeError up front when neither is usable, instead of
+    failing deep inside a decode."""
+    if native_available():
+        return "native libpng"
+    _pil()
+    return "PIL"
+
+
 # ---------------------------------------------------------------------------
 # single-image API
 # ---------------------------------------------------------------------------
@@ -214,8 +239,7 @@ def read_png(path: str) -> np.ndarray:
             lib.vkr_free(buf)
             return arr.reshape(h.value, w.value, 3)
         raise FileNotFoundError(f"Image not found: {path}")
-    from PIL import Image
-
+    Image = _pil()
     try:
         img = Image.open(path).convert("RGB")
     except (FileNotFoundError, OSError) as e:
@@ -374,9 +398,7 @@ def write_png(path: str, img: np.ndarray, compression_level: int = 6) -> None:
         if rc != 0:
             raise OSError(_encode_err(rc, path))
         return
-    from PIL import Image
-
-    Image.fromarray(img, "RGB").save(path, compress_level=compression_level)
+    _pil().fromarray(img, "RGB").save(path, compress_level=compression_level)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Native PNG decode/encode + worker thread pool for batched folder mode.
 //
-// TPU-native replacement for the reference's image-I/O layer:
+// Replacement for the reference's image-I/O layer:
 //   - stb_image / stb_image_write PNG codecs (VkResample.cpp:1362, 1754)
 //   - the per-thread std::thread decode workers that exist "to speed up
 //     png reads" (VkResample.cpp:1958-1969; README.md:53)
@@ -207,10 +207,10 @@ int vkr_png_encode_planar(const char* path, const unsigned char* r,
 }
 
 // ---------------------------------------------------------------------
-// parity-planar encode: the device pipeline's fused per-parity CAS kernel
-// emits even rows and odd rows as two separate (3, H/2, W) uint8 plane
-// stacks (no device-side row weave — see ops/cas_pallas.py
-// cas_parity_planes_u2).  Row pointers are arbitrary in libpng, so the
+// parity-planar encode: the device pipeline's per-parity CAS emits even
+// rows and odd rows as two separate (3, H/2, W) uint8 plane stacks (no
+// device-side row weave — see ops/cas.py cas_parity_planes).  Row
+// pointers are arbitrary in libpng, so the
 // interleave is free here: row y reads from plane stack (y & 1).
 // ---------------------------------------------------------------------
 int vkr_png_encode_planar_parity(const char* path, const unsigned char* e,

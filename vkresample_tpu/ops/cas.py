@@ -12,35 +12,23 @@ The c2c spectrum path feeds *complex* values whose magnitude (GLSL
 length(vec2), VkResample.cpp:904) is the pixel value — absorbing the tiny
 imaginary residue of the unsplit Nyquist bin.
 
-This module holds the pure-XLA formulation; ops/cas_pallas.py has the fused
-Pallas kernel used on the hot path.
+Two layouts share one arithmetic tail (_cas_out):
+  cas_sharpen        - the woven (..., H, W) image;
+  cas_parity_planes  - the same stencil evaluated per output parity on
+                       uy x ux parity planes, emitting uint8 planes that
+                       the PNG encoder interleaves in its row loop.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
-def cas_sharpen(v: jnp.ndarray, sharpen: float) -> jnp.ndarray:
-    """Sharpen over the last two axes (..., H, W).
-
-    v: real or complex, already scaled by upscale^2.
-    Returns real image, same leading axes, not yet clamped/quantized.
-    """
-    ln = jnp.abs(v)  # complex magnitude or real abs (GLSL length())
-    ln = jnp.clip(ln, 0.0, 1.0)
-    dtype = ln.dtype
-
-    p = jnp.pad(ln, [(0, 0)] * (ln.ndim - 2) + [(1, 1), (1, 1)], mode="edge")
-    c = p[..., 1:-1, 1:-1]
-    n = p[..., :-2, 1:-1]
-    s = p[..., 2:, 1:-1]
-    w = p[..., 1:-1, :-2]
-    e = p[..., 1:-1, 2:]
-    nw = p[..., :-2, :-2]
-    ne = p[..., :-2, 2:]
-    sw = p[..., 2:, :-2]
-    se = p[..., 2:, 2:]
-
+def _cas_out(c, n, w, e, s, nw, ne, sw, se, sharpen):
+    """CAS on clipped centre/neighbour values (any matching shapes): the
+    two-level min/max, the adaptive weight and the rational blend
+    (VkResample.cpp:904-923).  Not yet clamped/quantized."""
+    dtype = c.dtype
     min_cross = jnp.minimum(n, jnp.minimum(w, jnp.minimum(c, jnp.minimum(e, s))))
     min_all = jnp.minimum(
         min_cross, jnp.minimum(nw, jnp.minimum(ne, jnp.minimum(sw, se)))
@@ -57,9 +45,145 @@ def cas_sharpen(v: jnp.ndarray, sharpen: float) -> jnp.ndarray:
     hi = (one - maxlen) / maxlen
     sc = jnp.where(lo < hi, lo, hi)
     sc = jnp.where(jnp.isnan(sc), jnp.zeros((), dtype), sc)
-    sc = -jnp.asarray(sharpen, dtype) * jnp.sqrt(jnp.maximum(sc, 0.0))
+    sc = jnp.asarray(-sharpen, dtype) * jnp.sqrt(jnp.maximum(sc, 0.0))
 
     return (c + sc * (n + w + e + s)) / (one + 4.0 * sc)
+
+
+def cas_sharpen(v: jnp.ndarray, sharpen: float) -> jnp.ndarray:
+    """Sharpen over the last two axes (..., H, W).
+
+    v: real or complex, already scaled by upscale^2.
+    Returns real image, same leading axes, not yet clamped/quantized.
+    """
+    ln = jnp.abs(v)  # complex magnitude or real abs (GLSL length())
+    ln = jnp.clip(ln, 0.0, 1.0)
+
+    p = jnp.pad(ln, [(0, 0)] * (ln.ndim - 2) + [(1, 1), (1, 1)], mode="edge")
+    return _cas_out(
+        p[..., 1:-1, 1:-1],
+        p[..., :-2, 1:-1], p[..., 1:-1, :-2], p[..., 1:-1, 2:], p[..., 2:, 1:-1],
+        p[..., :-2, :-2], p[..., :-2, 2:], p[..., 2:, :-2], p[..., 2:, 2:],
+        sharpen,
+    )
+
+
+# ---------------------------------------------------------------------------
+# parity-plane CAS
+# ---------------------------------------------------------------------------
+#
+# A u-fold upscale can be carried as uy x ux parity planes: plane (ry, rx)
+# holds woven pixels [ry::uy, rx::ux].  Every stencil neighbour of a pixel
+# in plane (ry, rx) is a pixel of a sibling plane at plane offset -1, 0 or
+# +1 per axis, so CAS runs per plane with no interleave on the device.
+# The reference clamps x and y independently (id_x_m / id_y_m,
+# VkResample.cpp:889-892), so at the image border the neighbour falls back
+# to the centre's own row or column.
+
+
+def parity_stencil(tap, uy: int, ux: int, sharpen: float, edges):
+    """CAS on parity planes expressed through a tap function.
+
+    tap(ry, rx, dy, dx): the clipped values of plane (ry, rx) at plane
+    offset (dy, dx), indexed with clamp-to-edge (values at clamped
+    positions are never used: the edge masks replace them).
+    edges: (top, bottom, left, right) boolean masks of plane row 0, row
+    h-1, column 0 and column w-1, broadcastable against a tap.
+    Returns the uy*ux uint8 planes in row-major (ry, rx) order.
+
+    Shared by cas_parity_planes (whole planes, taps are shifted copies)
+    and the blocked GPU kernel (taps are masked tile loads)."""
+    top, bot, left, right = edges
+    memo = {}
+
+    def t(ry, rx, dy=0, dx=0):
+        k = (ry, rx, dy, dx)
+        if k not in memo:
+            memo[k] = tap(*k)
+        return memo[k]
+
+    def west(ry, rx, dy):
+        if rx > 0:
+            return t(ry, rx - 1, dy)
+        return jnp.where(left, t(ry, 0, dy), t(ry, ux - 1, dy, -1))
+
+    def east(ry, rx, dy):
+        if rx < ux - 1:
+            return t(ry, rx + 1, dy)
+        return jnp.where(right, t(ry, ux - 1, dy), t(ry, 0, dy, 1))
+
+    outs = []
+    for ry in range(uy):
+        for rx in range(ux):
+            c = t(ry, rx)
+            w, e = west(ry, rx, 0), east(ry, rx, 0)
+            if ry > 0:
+                n = t(ry - 1, rx)
+                nw, ne = west(ry - 1, rx, 0), east(ry - 1, rx, 0)
+            else:
+                n = jnp.where(top, c, t(uy - 1, rx, -1))
+                nw = jnp.where(top, w, west(uy - 1, rx, -1))
+                ne = jnp.where(top, e, east(uy - 1, rx, -1))
+            if ry < uy - 1:
+                s = t(ry + 1, rx)
+                sw, se = west(ry + 1, rx, 0), east(ry + 1, rx, 0)
+            else:
+                s = jnp.where(bot, c, t(0, rx, 1))
+                sw = jnp.where(bot, w, west(0, rx, 1))
+                se = jnp.where(bot, e, east(0, rx, 1))
+            outs.append(
+                quantize_u8(_cas_out(c, n, w, e, s, nw, ne, sw, se, sharpen))
+            )
+    return outs
+
+
+def clip_unit(x: jnp.ndarray) -> jnp.ndarray:
+    """Stored pre-CAS values (float, or int16 Q2.14) -> |v| clipped to
+    [0, 1] in f32 (f64 stays f64)."""
+    if x.dtype == jnp.int16:
+        x = from_i16_storage(x)
+    elif x.dtype != jnp.float64:
+        x = x.astype(jnp.float32)
+    return jnp.minimum(jnp.abs(x), 1.0)
+
+
+def cas_parity_planes(planes, sharpen: float, uy: int, ux: int = None):
+    """CAS + quantize on uy x ux parity planes.
+
+    planes: uy*ux arrays (..., h, w) in row-major (ry, rx) order, float or
+    int16 Q2.14, all of one shape; plane (ry, rx) holds woven pixels
+    [ry::uy, rx::ux].  ux defaults to uy (p x p grids; the row-split
+    route passes ux=1).  Returns the uint8 planes in the same order: the
+    same values as quantize_u8(cas_sharpen(woven)) without the woven
+    image ever existing."""
+    ux = uy if ux is None else ux
+    if len(planes) != uy * ux:
+        raise ValueError(f"expected {uy * ux} planes, got {len(planes)}")
+    if any(p.shape != planes[0].shape for p in planes):
+        raise ValueError("parity planes must share one shape")
+    f = [clip_unit(p) for p in planes]
+    h, w = f[0].shape[-2:]
+
+    def shift(a, d, axis):
+        # plane offset d in {-1, 0, +1} along axis, clamped at the edge
+        n = a.shape[axis]
+        if d < 0:
+            parts = (a[..., :1, :] if axis == -2 else a[..., :1],
+                     jax.lax.slice_in_dim(a, 0, n - 1, axis=axis))
+        elif d > 0:
+            parts = (jax.lax.slice_in_dim(a, 1, n, axis=axis),
+                     a[..., -1:, :] if axis == -2 else a[..., -1:])
+        else:
+            return a
+        return jnp.concatenate(parts, axis=axis)
+
+    def tap(ry, rx, dy, dx):
+        return shift(shift(f[ry * ux + rx], dy, -2), dx, -1)
+
+    row = jnp.arange(h)[:, None]
+    col = jnp.arange(w)[None, :]
+    edges = (row == 0, row == h - 1, col == 0, col == w - 1)
+    return tuple(parity_stencil(tap, uy, ux, sharpen, edges))
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +192,7 @@ def cas_sharpen(v: jnp.ndarray, sharpen: float) -> jnp.ndarray:
 #
 # The reference's half mode stores fp16 in device memory with fp32 compute
 # (halfPrecisionMemoryOnly, vkFFT.h:55; fp16 marshal VkResample.cpp:1669-84).
-# The TPU equivalent stores the pre-CAS image as int16 FIXED POINT instead:
+# This build stores the pre-CAS image as int16 FIXED POINT instead:
 # CAS clips |v| to [0,1] before any arithmetic (VkResample.cpp:889-904), so
 # the useful signal range is bounded and a Q2.14 integer keeps ~14 bits of
 # it — 4x finer than IEEE fp16's 10-bit mantissa near 1.0, at the same

@@ -1,13 +1,13 @@
 """Spectrum relocation ("shift") ops.
 
-TPU-native reformulation of the reference's in-place shift shader
+Functional reformulation of the reference's in-place shift shader
 (/root/reference/VkResample.cpp:476-548).  The reference relocates
 negative-frequency bins inside one big strided buffer because its forward
 FFT already wrote the small spectrum there; under XLA we instead *assemble*
 the big spectrum functionally (gather-free: two static-slice writes), which
 XLA fuses with the surrounding FFT stages.
 
-The MXU tier never materializes the big spectrum at all — see
+The matmul tier never materializes the big spectrum at all — see
 fft/rfft2.py for the phase-decomposed inverse that consumes the small
 spectrum directly (and fft/dense.py for the bank formulation).
 """

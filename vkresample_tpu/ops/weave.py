@@ -1,13 +1,10 @@
-"""Device-side u8 parity weaves.
+"""Device-side u8 parity weaves, for callers that want the woven image
+on the device (the library upscale() API); the PNG path never weaves.
 
-Column (lane) interleaves of uint8 arrays are pathological on TPU as
-layout ops (stack+reshape ~16 ms, strided scatters ~330 ms at the
-flagship shape — docs/STATUS.md round 2), which is why the quad route was
-planes-out only.  This module packs the two column-parity bytes into ONE
-uint16 lane instead (even | odd << 8) and bitcasts u16 -> u8: the
-interleave happens inside the lane as integer arithmetic (VPU ops), and
-the trailing (w, 2) -> 2w reshape after the bitcast is minor-most and
-layout-free.  Row (sublane) weaves were always cheap.
+Column interleaves pack the two column-parity bytes into ONE uint16
+element (even | odd << 8) and bitcast u16 -> u8: the interleave is
+integer arithmetic, and the trailing (w, 2) -> 2w reshape after the
+bitcast is minor-most.  Row weaves are a stack + reshape.
 """
 from __future__ import annotations
 
@@ -27,8 +24,7 @@ def weave_cols_u8(even: jnp.ndarray, odd: jnp.ndarray) -> jnp.ndarray:
 
 
 def weave_rows_u8(top: jnp.ndarray, bot: jnp.ndarray) -> jnp.ndarray:
-    """(..., h, W) + (..., h, W) -> (..., 2h, W): sublane interleave,
-    cheap on TPU."""
+    """(..., h, W) + (..., h, W) -> (..., 2h, W): row interleave."""
     out = jnp.stack([top, bot], axis=-2)
     return out.reshape(out.shape[:-3] + (2 * out.shape[-3], out.shape[-1]))
 
@@ -57,7 +53,7 @@ def _weave_cols_n_u8(cols):
 
 def weave_grid_u8(planes, u: int) -> jnp.ndarray:
     """u*u uint8 grid-parity planes (row-major (ry, rx), each (..., h, w))
-    -> woven (..., u*h, u*w) uint8.  Row interleave is a cheap sublane
+    -> woven (..., u*h, u*w) uint8.  Row interleave is a
     stack; columns take _weave_cols_n_u8."""
     rows = [
         _weave_cols_n_u8(list(planes[ry * u : (ry + 1) * u]))

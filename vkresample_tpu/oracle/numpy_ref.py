@@ -66,14 +66,14 @@ def assemble_big_spectrum(F: np.ndarray, plan: UpscalePlan) -> np.ndarray:
     return G
 
 
-def cas_sharpen(v: np.ndarray, sharpen: float, magnitude: bool) -> np.ndarray:
+def cas_sharpen(v: np.ndarray, sharpen: float) -> np.ndarray:
     """FidelityFX-CAS sharpen, exact reference math (VkResample.cpp:887-923).
 
-    v: (H, W) real (r2c path) or complex (c2c path, magnitude=True), already
+    v: (H, W) real (r2c path) or complex (c2c path), already
        pre-scaled by upscale^2.
     Returns the sharpened image in [0, ~1+] (not yet clamped/quantized).
     """
-    ln = np.abs(v) if magnitude else np.abs(v)  # length() == abs for both
+    ln = np.abs(v)  # length(): complex magnitude or real abs alike
     ln = np.clip(ln, 0.0, 1.0)
 
     p = np.pad(ln, 1, mode="edge")  # clamp-to-edge neighbor indexing
@@ -126,12 +126,12 @@ def upscale_oracle(
             F = np.fft.rfft2(f)
             G = assemble_big_spectrum(F, plan)
             y = np.fft.irfft2(G, s=(plan.H, plan.W))
-            sharp = cas_sharpen(u2 * y, plan.sharpen, magnitude=False)
+            sharp = cas_sharpen(u2 * y, plan.sharpen)
         else:
             F = np.fft.fft2(f)
             G = assemble_big_spectrum(F, plan)
             y = np.fft.ifft2(G)
-            sharp = cas_sharpen(u2 * y, plan.sharpen, magnitude=True)
+            sharp = cas_sharpen(u2 * y, plan.sharpen)
         out[:, :, ch] = quantize_u8(sharp)
     return out
 
@@ -150,10 +150,10 @@ def upscale_oracle_float(
             F = np.fft.rfft2(f)
             G = assemble_big_spectrum(F, plan)
             y = np.fft.irfft2(G, s=(plan.H, plan.W))
-            outs.append(cas_sharpen(u2 * y, plan.sharpen, magnitude=False))
+            outs.append(cas_sharpen(u2 * y, plan.sharpen))
         else:
             F = np.fft.fft2(f)
             G = assemble_big_spectrum(F, plan)
             y = np.fft.ifft2(G)
-            outs.append(cas_sharpen(u2 * y, plan.sharpen, magnitude=True))
+            outs.append(cas_sharpen(u2 * y, plan.sharpen))
     return np.stack(outs, axis=-1)

@@ -2,11 +2,11 @@
 
 The reference has no distributed mode (SURVEY §2.4) — its long-sequence
 mechanism is the multi-upload 4-step FFT within one GPU (vkFFT.h:4733-4771).
-On TPU the analogous capability *across chips* is a pencil decomposition
-over an 'sp' mesh axis: rows of the frame live on different chips, FFT
-passes run locally, and a single all-to-all re-pencils between the x and y
-passes — collectives ride ICI, never DCN.  This serves frames too large
-for one chip's HBM/VMEM (e.g. 16K x 8K).
+Here the analogous capability *across devices* is a pencil decomposition
+over an 'sp' mesh axis: rows of the frame live on different devices, FFT
+passes run locally, and a single all-to-all re-pencils between the x and
+y passes (NCCL over NVLink between the GPUs of one host).  This serves
+frames too large for one device's memory (e.g. 16K x 8K).
 
 Layout walk (S = shard count, per-chip shapes):
   input   (C, h/S, w)   rows sharded
@@ -144,7 +144,7 @@ def _sp_body(img_block: jnp.ndarray, plan: UpscalePlan, S: int, axis_name: str):
             Pp = _mul_row_twiddle((Br, Bi), _phase_twiddle_x_r2c(w, u, rx, kx, dt), axis=-1)
             cols.append(_c2r_rows_packed(Pp, w, keep_nyquist, 128))
         # interleave x phases with strided scatters (minor-dim-u stacks
-        # get 128-lane padded on TPU — avoid)
+        # can be padded to 128 elements by tiled layouts — avoid)
         xi = jnp.zeros(cols[0].shape[:-1] + (u * w,), cols[0].dtype)
         for rx in range(u):
             xi = xi.at[..., rx::u].set(cols[rx])
@@ -186,7 +186,7 @@ def rfft2_packed_rows_only(x: jnp.ndarray):
 @functools.lru_cache(maxsize=16)
 def build_sp_upscale(plan: UpscalePlan, mesh: Mesh, axis_name: str = "sp") -> Callable:
     """One frame (h, w, C) uint8, rows sharded over `axis_name` ->
-    (H, W, C) uint8, rows sharded.  Requires the MXU fast path
+    (H, W, C) uint8, rows sharded.  Requires the matmul fast path
     (integer u, even 7-smooth dims) and h % (2*S) == 0."""
     S = mesh.shape[axis_name]
     if plan.integer_upscale is None:
@@ -277,7 +277,6 @@ def _sp_dense_body(
     """shard_map body: (h/S, w, C) uint8 rows-block -> (H, W/S, C) uint8
     columns-block."""
     from ..fft import dense
-    from ..ops.cas_pallas import cas_quantize_pallas
 
     u = plan.integer_upscale
     h, w, W = plan.h, plan.w, plan.W
@@ -304,8 +303,11 @@ def _sp_dense_body(
         y1_loc = jax.lax.dynamic_slice_in_dim(
             banks["Y1n"], idx * rows_loc, rows_loc, axis=0
         )
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         t_part = jnp.einsum(
-            "...hw,hr->...rw", x_raw.astype(jnp.float32), y1_loc, precision=prec
+            "...hw,hr->...rw", x_raw.astype(jnp.float32), y1_loc,
+            precision=jax.lax.Precision.HIGHEST,
         )
         tcorr = jax.lax.psum(t_part, axis_name)
         t2 = jnp.einsum("...rw,wn->...rn", tcorr, banks["beta"], precision=prec)
@@ -425,8 +427,13 @@ def _sp_staged_body(
         y1_loc = jax.lax.dynamic_slice_in_dim(
             banks["st_y1n"], idx * rows_loc, rows_loc, axis=0
         )
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         tcorr = jax.lax.psum(
-            jnp.einsum("...hw,hr->...rw", xf, y1_loc, precision=prec),
+            jnp.einsum(
+                "...hw,hr->...rw", xf, y1_loc,
+                precision=jax.lax.Precision.HIGHEST,
+            ),
             axis_name,
         )
         t2o = conv_apply_lanes(tcorr, banks, "stbo_", prec)
@@ -554,8 +561,13 @@ def _sp_grid_body(
         y1_loc = jax.lax.dynamic_slice_in_dim(
             banks["sg_y1n"], idx * rows_loc, rows_loc, axis=0
         )
+        # rank-r correction: matrix-vector work, full f32 (XLA's CPU
+        # backend has no three-pass bf16 matrix-vector dot)
         tcorr = jax.lax.psum(
-            jnp.einsum("...hw,hr->...rw", xf, y1_loc, precision=prec),
+            jnp.einsum(
+                "...hw,hr->...rw", xf, y1_loc,
+                precision=jax.lax.Precision.HIGHEST,
+            ),
             axis_name,
         )
         tc = [

@@ -2,14 +2,14 @@
 
 Parallelism design (SURVEY §2.4): the reference's only parallelism is
 frame-level data parallelism — N CPU threads, each with its own Vulkan
-device, round-robin over files (VkResample.cpp:1958-1969).  The TPU-native
-equivalent shards the frame batch across chips over a 1-D "dp" mesh with
-per-chip FFTs and ZERO collectives on the hot path; ICI would only carry
-host-side scatter/gather, which stays off the timed region exactly like
-PNG I/O does in the reference.
+device, round-robin over files (VkResample.cpp:1958-1969).  The
+equivalent here shards the frame batch across devices over a flat 1-D
+"dp" mesh with per-device FFTs and ZERO collectives on the hot path; only
+the host-side scatter/gather moves frames, and it stays off the timed
+region exactly like PNG I/O does in the reference.
 
 An optional "sp" axis supports pencil-decomposed distributed FFTs for
-frames too large for one chip (see parallel/distributed.py).
+frames too large for one device (see parallel/distributed.py).
 """
 from __future__ import annotations
 

@@ -25,9 +25,12 @@ def build_batched_upscale(
     with planes_out, a pair of (N, C, H/2, W) parity planes), one jitted
     program.
 
-    With a mesh, frames shard over the 'dp' axis; each chip runs its own
-    per-frame FFT pipeline (no cross-chip collectives, matching the
-    reference's independent per-thread Vulkan devices).
+    With a mesh, frames shard over the 'dp' axis and the pipeline runs
+    under shard_map: each device runs its own per-frame pipeline on its
+    local frames (no collectives, matching the reference's independent
+    per-thread Vulkan devices), so opaque kernels such as the GPU CAS
+    kernel are never gathered onto one device.  The batch must divide
+    over the mesh.
     """
     from .upscale import make_device_banks
 
@@ -48,9 +51,21 @@ def build_batched_upscale(
         sh = mesh_lib.frames_sharding(mesh)
         rep = mesh_lib.replicated(mesh)
         banks_sh = None if banks is None else jax.tree.map(lambda _: rep, banks)
-        # `sh` is a pytree prefix: applies to every output leaf (woven
-        # array, or the 2/4 parity planes)
-        jitfn = jax.jit(fn, in_shardings=(sh, banks_sh), out_shardings=sh)
+        # replicate once here, not on every call
+        banks = None if banks is None else jax.device_put(banks, banks_sh)
+        frames = jax.sharding.PartitionSpec("dp")
+        local = jax.shard_map(
+            fn,
+            mesh=mesh,
+            in_specs=(frames, jax.tree.map(lambda _: jax.sharding.PartitionSpec(), banks)),
+            # a pytree prefix: applies to every output leaf (woven array,
+            # or the 2/4/u^2 parity planes)
+            out_specs=frames,
+            # the body has no collectives; the kernels' out_shapes carry
+            # no varying-axis annotation
+            check_vma=False,
+        )
+        jitfn = jax.jit(local, in_shardings=(sh, banks_sh), out_shardings=sh)
 
     def run(imgs, _fn=jitfn, _banks=banks):
         return _fn(imgs, _banks)

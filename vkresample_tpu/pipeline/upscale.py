@@ -1,9 +1,9 @@
 """Single-image upscale pipeline: one jitted graph, uint8 in -> uint8 out.
 
 The reference records [fwd FFT -> shift -> inv FFT -> sharpen] into one
-command buffer per frame (/root/reference/VkResample.cpp:1249-1279); the TPU
-analog is one jitted XLA program covering the entire pipeline — one host
-dispatch, no intermediate host syncs, uint8 at both HBM boundaries.
+command buffer per frame (/root/reference/VkResample.cpp:1249-1279); here
+one jitted XLA program covers the entire pipeline — one host dispatch, no
+intermediate host syncs, uint8 at both device-memory boundaries.
 
 All plan-time specialization (sizes, zero bands, radix factorizations,
 precision policy) happens in Python at trace time, mirroring how VkFFT bakes
@@ -23,6 +23,8 @@ from ..core.config import Engine, Precision
 from ..core.plan import UpscalePlan
 from ..ops import cas as cas_ops
 from ..ops import spectrum as spectrum_ops
+from ..ops.cas_triton import cas_quad_planes
+from ..ops.weave import weave_grid_u8, weave_quad_u8, weave_rows_u8
 
 
 def _precas_xla(x: jnp.ndarray, plan: UpscalePlan) -> jnp.ndarray:
@@ -58,27 +60,27 @@ def _precas(
     raise ValueError(f"unresolved engine {engine}")
 
 
-def _use_pallas_cas(plan: UpscalePlan) -> bool:
-    import os
+def _cas_planes(planes, sharpen: float, u: int):
+    """Per-parity CAS on u x u planes; the 2 x 2 case runs the GPU kernel
+    (ops/cas_triton.py) where the program is lowered for CUDA."""
+    if u == 2:
+        return cas_quad_planes(planes, sharpen)
+    return cas_ops.cas_parity_planes(planes, sharpen, u)
 
-    if os.environ.get("VKRESAMPLE_NO_PALLAS"):
-        return False
-    if plan.precision is Precision.DOUBLE:
-        return False  # f64 stays on the XLA path
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
+
+def _parity_capable(plan: UpscalePlan) -> bool:
+    """Whether the plan may take a parity-plane CAS route.  DOUBLE stays
+    on the woven f64 path: the parity routes store f32 / int16 planes."""
+    return plan.precision is not Precision.DOUBLE
 
 
 # Auto channel-serialization threshold: C * H * W output elements above
-# which the batched (C-leading) program's live set approaches the 16 GB
-# HBM and channels run as a device-side sequential loop instead.  The
-# 3-channel 16K->32K batched program (~1.6e9) fits and is FASTER than
-# serial on-chip (127.5 vs 131.2 ms, scripts/big16k_3ch.py, maxdiff 1 vs
-# the 1-channel program), so the threshold sits above it; serial remains
-# the capacity fallback for the next tier up (a 3-channel 32K output is
-# ~6.4e9 — no batched evidence there).
+# which channels run as a device-side sequential loop instead of a
+# leading batch dim, so one channel's transform working set is live at a
+# time.  2e9 sits above the 3-channel 16K->32K frame (~1.6e9), so that
+# frame runs batched; a 3-channel 32K output (~6.4e9) runs serial.  The
+# value is unmeasured on the H100 (80 GB); chip_smoke.py prints the
+# 16K->32K program's memory_analysis() against it.
 CHANNEL_SERIAL_ELEMS = int(2e9)
 
 
@@ -113,9 +115,9 @@ def _pipeline(
     planes_out (u=2 only): return uint8 parity planes in the format
     planes_format(plan) reports — 'quad': four (C, H/2, W/2) planes
     p[row parity][col parity]; 'rows': (E, D) (C, H/2, W).  These are the
-    fused per-parity CAS kernels' native layouts; the PNG encoder
-    interleaves inside its row loop, so the woven image never exists on
-    device OR host.
+    per-parity CAS's native layouts (ops/cas.py cas_parity_planes); the
+    PNG encoder interleaves inside its row loop, so the woven image never
+    exists on device OR host.
 
     `banks` is the (optional) device-array pytree of dense DFT matrices,
     passed as a jit argument so multi-MB matrices never become HLO literal
@@ -150,16 +152,16 @@ def _pipeline(
         return jnp.moveaxis(outs, 0, -1)
 
     cdtype = plan.precision.compute_dtype
-    use_pallas = _use_pallas_cas(plan)
+    parity = _parity_capable(plan)
     storage = os.environ.get("VKRESAMPLE_HALF_STORAGE")
 
     def _store16(t):
         # -p 2 half-memory storage (DEFAULT): int16 Q2.14 fixed point.
         # Same bytes as the reference's fp16 storage (vkFFT.h:55
         # halfPrecisionMemoryOnly), ~16x finer resolution on the
-        # CAS-clipped [0,1] signal (~0.008 u8 LSB); halves CAS HBM
-        # traffic vs f32.  XLA fuses the round/cast into the matmul
-        # epilogues.  bf16 is an A/B knob (up to 4 u8 LSB).
+        # CAS-clipped [0,1] signal (~0.008 u8 LSB); halves the CAS's
+        # device-memory traffic vs f32.  XLA fuses the round/cast into
+        # the matmul epilogues.  bf16 is an A/B knob (up to 4 u8 LSB).
         if plan.precision is not Precision.HALF or storage == "f32":
             return t
         if storage == "bf16":
@@ -169,10 +171,15 @@ def _pipeline(
     # pre-CAS storage codec for the split paths: when int16 Q2.14 storage
     # is active, quantize INSIDE the transform (the y matmul reads the
     # dequantized stored planes) so the f32 planes never materialize —
-    # see dense.r2c_quad's docstring for the A/B.
+    # see dense.r2c_quad's docstring.
     _i16_mode = plan.precision is Precision.HALF and storage not in (
         "f32",
         "bf16",
+    )
+    _codec = (
+        dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
+        if _i16_mode
+        else {}
     )
     # big int8-only dense quad bank set (>DENSE_MAX; dense.r2c_quad_int8_banks):
     # usable only with parity-plane output and the i16 codec
@@ -184,35 +191,32 @@ def _pipeline(
         and _i16_mode
         and _parity_route(plan) == "quad"
     )
-    # staged circulant bank set (big tier default; fft/staged.py): three
-    # small matmuls per axis, works with or without the i16 codec
     # woven callers can take the quad route too: CAS emits u8 parity
-    # planes and the u16-packed column weave interleaves them as lane
-    # ARITHMETIC (ops/weave.py), not as the pathological layout relayout.
-    # Default: only where no rows route exists (big staged banks) — the
-    # rows route measured slightly faster at the flagship shape
-    # (1.86 vs 1.97 ms, scripts/woven_ab.py); VKRESAMPLE_WOVEN=quad16
+    # planes and ops/weave.py interleaves them.  Default: only where no
+    # rows route exists (big staged banks); VKRESAMPLE_WOVEN=quad16
     # forces the quad weave, =rows forces rows.
     _we = os.environ.get("VKRESAMPLE_WOVEN", "")
     woven_quad = _we == "quad16" or (
         _we != "rows" and banks is not None and "Ymat_ns" not in banks
     )
+    # staged circulant bank set (big tier default; fft/staged.py): three
+    # small matmuls per axis, works with or without the i16 codec
     use_staged = (
-        banks is not None
+        parity
+        and banks is not None
         and "stx_b1" in banks
         and (planes_out or woven_quad)
         and _parity_route(plan) == "quad"
     )
 
-    # The quad (column-split) formulation is ONLY taken when the caller
-    # consumes parity PLANES: weaving the columns back on device is a u8
-    # lane interleave, and BOTH formulations measured pathological on TPU
-    # (stack+reshape ~16 ms, strided scatters ~330 ms, vs 1.4 ms for the
-    # whole pipeline).  Woven-output callers (the library upscale() API)
-    # take the rows-parity route instead — its row weave is a sublane
-    # interleave, which is cheap.
+    def _finish_grid(Pu8, u):
+        if planes_out:
+            return Pu8
+        out = weave_grid_u8(Pu8, u)
+        return out if planar_out else jnp.moveaxis(out, -3, -1)
+
     if (
-        use_pallas
+        parity
         and planes_out
         and engine is Engine.MXU
         and (banks is None or "Ymat_ns" not in banks)
@@ -224,10 +228,9 @@ def _pipeline(
     ):
         # beyond the dense banks (>DENSE_MAX axes, integer u=2): the phase
         # decomposition IS the parity decomposition — feed the four phase
-        # planes straight to the quad CAS kernel; neither the woven image
-        # nor the big spectrum ever exists
+        # planes straight to the parity CAS; neither the woven image nor
+        # the big spectrum ever exists
         from ..fft.rfft2 import irfft2_phase_planes, rfft2_packed
-        from ..ops.cas_pallas import cas_parity4_planes_u2
 
         x = cas_ops.normalize_u8(img_u8, cdtype)
         x = jnp.moveaxis(x, -1, -3)
@@ -236,83 +239,55 @@ def _pipeline(
         F = rfft2_packed(x, k_cols=kx)  # trim before the y transform
         pl4 = irfft2_phase_planes(F, plan.h, plan.w, 2, keep_nyq)
         Ps = [_store16(p) for p in (pl4[0][0], pl4[0][1], pl4[1][0], pl4[1][1])]
-        return cas_parity4_planes_u2(*Ps, plan.sharpen)
+        return _cas_planes(Ps, plan.sharpen, 2)
 
     if (
-        use_pallas
+        parity
         and engine is Engine.MXU
         and banks is not None
         and "cg_ay" in banks
         and not plan.r2c
     ):
-        # big c2c tier: staged grid transform -> p^2 magnitude planes ->
-        # fused per-parity CAS (quad kernel at p=2, grid kernel above).
-        # CAS consumes the complex magnitude (VkResample.cpp:904), which
-        # the transform already emits per plane via the rank-1 Nyquist
-        # algebra (fft/staged.py c2c_grid_staged).
+        # c2c tier: staged grid transform -> p^2 magnitude planes ->
+        # per-parity CAS.  CAS consumes the complex magnitude
+        # (VkResample.cpp:904), which the transform already emits per
+        # plane via the rank-1 Nyquist algebra (fft/staged.py
+        # c2c_grid_staged).
         from ..fft import staged
-        from ..ops.cas_pallas import (
-            cas_parity4_planes_u2,
-            cas_parity_grid_planes,
-        )
-        from ..ops.weave import weave_grid_u8
 
         x_raw = jnp.moveaxis(img_u8, -1, -3)  # (..., C, h, w)
-        _codec = (
-            dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-            if _i16_mode
-            else {}
-        )
         u = staged.c2c_grid_u(banks)
         Ps = staged.c2c_grid_staged(
             x_raw, banks, staged.staged_precision(), **_codec
         )
         if not _i16_mode:
             Ps = [_store16(p) for p in Ps]
-        if u == 2:
-            Pu8 = cas_parity4_planes_u2(*Ps, plan.sharpen)
-        else:
-            Pu8 = cas_parity_grid_planes(Ps, u, plan.sharpen)
-        if planes_out:
-            return Pu8
-        out = weave_grid_u8(Pu8, u)
-        return out if planar_out else jnp.moveaxis(out, -3, -1)
+        return _finish_grid(_cas_planes(Ps, plan.sharpen, u), u)
 
     if (
-        use_pallas
+        parity
         and engine is Engine.MXU
         and banks is not None
         and "sgx1_b1" in banks
         and plan.r2c
     ):
-        # u >= 3 big tier: u-generic grid staged transform -> u^2 phase
-        # planes -> fused grid CAS (the u=2 quad route's generalization).
-        # planes_out feeds the PNG encoder's row-loop weave; woven callers
-        # get the device u8 weave (lane-pack for power-of-two u).
+        # u >= 3 / fractional big tier: u-generic grid staged transform ->
+        # u^2 phase planes -> per-parity CAS (the u=2 quad route's
+        # generalization).  planes_out feeds the PNG encoder's row-loop
+        # weave; woven callers get the device u8 weave.
         from ..fft import staged
-        from ..ops.cas_pallas import cas_parity_grid_planes
-        from ..ops.weave import weave_grid_u8
 
         x_raw = jnp.moveaxis(img_u8, -1, -3)  # (..., C, h, w)
-        _codec = (
-            dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-            if _i16_mode
-            else {}
-        )
         u = staged.grid_u(banks)
         Ps = staged.r2c_grid_staged(
             x_raw, banks, staged.staged_precision(), **_codec
         )
         if not _i16_mode:
             Ps = [_store16(p) for p in Ps]
-        Pu8 = cas_parity_grid_planes(Ps, u, plan.sharpen)
-        if planes_out:
-            return Pu8
-        out = weave_grid_u8(Pu8, u)
-        return out if planar_out else jnp.moveaxis(out, -3, -1)
+        return _finish_grid(_cas_planes(Ps, plan.sharpen, u), u)
 
     if (
-        use_pallas
+        parity
         and engine is Engine.MXU
         and banks is not None
         and ("Ymat_ns" in banks or use_big_quad or use_staged)
@@ -320,21 +295,11 @@ def _pipeline(
     ):
         # row-split fast path: raw uint8 feeds the split-bf16 x matmul
         # (normalization folded into the banks); the y matmul emits the
-        # non-sample rows; the Pallas kernel fuses CAS+quantize.
+        # non-sample rows; CAS runs per output parity.
         from ..fft import dense
-        from ..ops.cas_pallas import (
-            cas_parity_planes_u2,
-            cas_quantize_pallas,
-        )
 
         x_raw = jnp.moveaxis(img_u8, -1, -3)  # (..., C, h, w)
         prec = plan.precision.matmul_precision
-        _codec = (
-            dict(store=cas_ops.to_i16_storage, load=cas_ops.from_i16_storage)
-            if _i16_mode
-            else {}
-        )
-
         fmt = _parity_route(plan)
         if (
             fmt == "quad"
@@ -344,46 +309,20 @@ def _pipeline(
             # quad-parity: x matmul only computes ODD output columns (even
             # columns are exact samples + a rank-1 correction); CAS runs
             # per (row, col) output parity on four half-width planes — no
-            # interleave anywhere on device (1.57 ms vs 1.97 rows-parity
-            # vs 2.14 weave+CAS at the flagship shape on v5e).  Gated on
-            # planes_out: see the column-weave note above.
-            from ..ops.cas_pallas import cas_parity4_planes_u2
-
+            # interleave anywhere on device
             if use_staged:
-                import os
-
                 from ..fft import staged
 
-                # staged convs need f32-grade stage matmuls regardless of
-                # the mode's matmul default (three chained stages; bf16
-                # operand rounding would cost whole u8 LSBs).  rows4d
-                # (opt-in): P10/P11 ride the S3 dot's copy-free
-                # transposed-row emission straight into the slot CAS
-                # kernel's lane-window DMAs.  REJECTED as default in
-                # round 4: bit-exact but 26.05 vs 25.36 ms e2e at
-                # 8K->16K — consuming the e-slices pins the CAS to the
-                # bt = nd = 64 band regime, which costs more than the
-                # 1.2 ms of sublane-transpose copies it avoids
-                # (scripts/rows4d_ab.py, docs/STATUS.md)
                 Ps = staged.r2c_quad_staged(
-                    x_raw, banks, staged.staged_precision(),
-                    rows4d=os.environ.get("VKRESAMPLE_ROWS4D") == "1",
-                    **_codec,
+                    x_raw, banks, staged.staged_precision(), **_codec
                 )
             else:
                 Ps = dense.r2c_quad(x_raw, banks, prec, **_codec)
             if not _i16_mode:
                 Ps = [_store16(p) for p in Ps]
-            y4d = (
-                Ps[2].shape[-3:-1]
-                if Ps[2].ndim == Ps[0].ndim + 1
-                else None
-            )
-            Pu8 = cas_parity4_planes_u2(*Ps, plan.sharpen, y4d=y4d)
+            Pu8 = _cas_planes(Ps, plan.sharpen, 2)
             if planes_out:
                 return Pu8
-            from ..ops.weave import weave_quad_u8
-
             out = weave_quad_u8(*Pu8)
             return out if planar_out else jnp.moveaxis(out, -3, -1)
 
@@ -391,18 +330,17 @@ def _pipeline(
         if not _i16_mode:
             U, O = _store16(U), _store16(O)
         if fmt is not None:
-            # per-parity fused CAS: no woven pre-CAS image, no device-side
-            # row weave at all
-            E, D = cas_parity_planes_u2(U, O, plan.sharpen)
+            # per-parity CAS on the (even, odd) output-row planes: no
+            # woven pre-CAS image, no device-side row weave
+            E, D = cas_ops.cas_parity_planes([U, O], plan.sharpen, 2, 1)
             if planes_out:
                 return E, D
-            out = jnp.stack([E, D], axis=-2)
-            out = out.reshape(
-                out.shape[:-3] + (2 * out.shape[-3], out.shape[-1])
-            )
+            out = weave_rows_u8(E, D)
         else:
-            v = dense.weave_rows(U, O, plan.integer_upscale)
-            out = cas_quantize_pallas(v, plan.sharpen)
+            v = dense.weave_rows(
+                cas_ops.clip_unit(U), cas_ops.clip_unit(O), plan.integer_upscale
+            )
+            out = cas_ops.quantize_u8(cas_ops.cas_sharpen(v, plan.sharpen))
         if planes_out:
             o4 = out.reshape(
                 out.shape[:-2] + (out.shape[-2] // 2, 2, out.shape[-1])
@@ -413,12 +351,7 @@ def _pipeline(
     x = cas_ops.normalize_u8(img_u8, cdtype)  # (..., h, w, C)
     x = jnp.moveaxis(x, -1, -3)  # planar per-channel, like the reference
     v = _precas(x, plan, engine, banks)
-    if use_pallas:
-        from ..ops.cas_pallas import cas_quantize_pallas
-
-        out = cas_quantize_pallas(v, plan.sharpen)
-    else:
-        out = cas_ops.quantize_u8(cas_ops.cas_sharpen(v, plan.sharpen))
+    out = cas_ops.quantize_u8(cas_ops.cas_sharpen(v, plan.sharpen))
     if planes_out:
         o4 = out.reshape(
             out.shape[:-2] + (out.shape[-2] // 2, 2, out.shape[-1])
@@ -459,12 +392,11 @@ def _parity_route(plan: UpscalePlan):
         return None
     from ..fft.mxu_pipeline import DENSE_MAX
 
-    # quad needs 128-aligned widths in the small dense tier (the Pallas
-    # quad CAS geometries are measured there and the rows route is the
-    # established non-aligned fallback); ABOVE the dense cap no rows
-    # route exists, so quad serves every even width — the staged tier's
-    # lane-padding tax plus the CAS kernels' own XLA fallback still beat
-    # the phases route by ~7x (see staged.staged_supported)
+    # in the small dense tier quad serves 128-aligned widths and the rows
+    # route the rest; ABOVE the dense cap no rows route exists, so quad
+    # serves every even width (the staged tier, see
+    # staged.staged_supported).  Which route is faster for non-aligned
+    # dense widths is unmeasured on the H100.
     if (
         (
             plan.w % 128 == 0
@@ -477,14 +409,14 @@ def _parity_route(plan: UpscalePlan):
 
 
 def parity_planes_supported(plan: UpscalePlan) -> bool:
-    """True when the plan runs a fused per-parity CAS route whose native
+    """True when the plan runs a per-parity CAS route whose native
     device output is uint8 parity planes that the PNG encoder weaves for
     free (see planes_format for which layout)."""
     from ..fft import dense
     from ..fft.mxu_pipeline import DENSE_MAX, big_grid_selected
 
     if not (
-        _use_pallas_cas(plan)
+        _parity_capable(plan)
         and plan.resolve_engine() is Engine.MXU
     ):
         return False
